@@ -7,21 +7,35 @@ kernels against its plain PyTorch version.
 Phases (any failure exits non-zero; no phase is caught and skipped):
 
   1. build the kernels from src/repro_torch/kernels/csrc/ and print the card;
-  2. each kernel against its plain version on the card, bit-exact, at ragged
-     word counts (a CRC with one chain among them), over float32, bfloat16,
-     int8 and uint32, batches with duplicate destinations and untouched
-     pages; CRC and copy+CRC also against zlib (sizes <= 1 MiB);
-  3. the main path: ``make_device(n_instances=2, policy="least_loaded")``
-     runs the quickstart flow (memcpy, crc32 with ``.then``, a promise
-     fence, an 8-descriptor fused batch), copy_crc, batch_copy into a
+  2. each slice-1 kernel against its plain version on the card, bit-exact, at
+     ragged word counts (a CRC with one chain among them), over float32,
+     bfloat16, int8 and uint32, batches with duplicate destinations and
+     untouched pages; CRC and copy+CRC also against zlib (sizes <= 1 MiB);
+  2b. each slice-2 kernel the same way: fills with 1-, 2- and 4-word
+     patterns, compares with the difference at word 0, in the middle, at
+     the last word and nowhere, delta records with 0, a few, exactly cap and
+     cap + 1 differences (word 0 among them) and an overflow, applies of
+     records with duplicates, -1 pads and offsets past the end, DIF with a
+     corrupted block;
+  3. the slice-1 main path: ``make_device(n_instances=2,
+     policy="least_loaded")`` runs memcpy, crc32 with ``.then``, a promise
+     fence, an 8-descriptor fused batch, copy_crc, batch_copy into a
      destination pool, a 32-descriptor ``submit_many`` burst, and a drain;
   4. the same path at the sizes its users submit (copies and CRCs of
      4 KiB .. 1 GiB, a 256 MiB checkpoint leaf, DPDK's 32 x 2 KiB burst,
      1024 pages of 16 KiB within a 4096-page pool);
-  5. each kernel's time at the phase 4 shapes beside its bound, its plain
-     version's time and, where one PyTorch call computes the same function,
-     that call's time;
-  6. the launch counts of phases 3 and 4: every kernel must have launched.
+  3b. the slice-2 main path: the whole quickstart (delta section included),
+     fill, compare, DIF and cache-flush descriptors, and ``dto`` under
+     ``dto_enabled``;
+  4b. the same at real sizes: fill and compare of 4 KiB .. 1 GiB, a delta
+     record of a 256 MiB bf16 checkpoint leaf with 0.5 % of its words
+     changed and a cap of 25 % of its words, restored bit for bit, ``dto``
+     of 64 MiB, DIF over 1 MiB of 512-byte blocks;
+  5. each kernel's time at the phase 4 / 4b shapes beside its bound, its
+     plain version's time and, where one PyTorch call computes the same
+     function, that call's time;
+  6. the launch counts of each slice's main path, set to 0 just before it
+     and read just after: every kernel of the path must have launched.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits with 2, printing
@@ -84,6 +98,12 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((x - y).abs().max())
 
 
+def host(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the word tensor ``t`` on the host (moved as int32: the same
+    bits)."""
+    return t.view(torch.int32).cpu().view(t.dtype)
+
+
 def rand_words(gen: torch.Generator, n_words: int, device) -> torch.Tensor:
     """``n_words`` random uint32 words made from ``gen`` on ``device``."""
     t = torch.randint(-2**31, 2**31, (n_words,), generator=gen, dtype=torch.int64,
@@ -111,9 +131,19 @@ def phase(name: str):
 
 
 # --------------------------------------------------------------------------- kernels
+#: the kernels of each slice's main path: slice 1 (memcpy, batch copy, CRC,
+#: copy+CRC) is driven by phases 3 and 4, slice 2 (fill, compare, delta
+#: records, DIF through the CRC kernel) by phases 3b and 4b
+SLICE1 = ("memcpy_words", "batch_copy_pages", "crc32_chunk_states", "gf2_fold",
+          "copy_crc_words")
+SLICE2 = ("fill_words", "compare_words", "delta_record_words", "delta_apply_words",
+          "crc32_chunk_states")
+
+
 def kernel_table():
     """name -> (wrapper with its ``launches`` count, file:line replaced)."""
-    from repro_torch.kernels import batch_copy, crc32, fused, memcpy
+    from repro_torch.kernels import (batch_copy, compare, crc32, delta_apply, delta_create,
+                                     fill, fused, memcpy)
 
     return {
         "memcpy_words": (memcpy.memcpy_words, "src/repro/kernels/memcpy.py:20"),
@@ -123,6 +153,12 @@ def kernel_table():
                                "src/repro/kernels/crc32.py:58"),
         "gf2_fold": (crc32.combine_chunk_crcs, "src/repro/kernels/crc32.py:97"),
         "copy_crc_words": (fused.copy_crc_words, "src/repro/kernels/fused.py:56"),
+        "fill_words": (fill.fill_words, "src/repro/kernels/fill.py:28"),
+        "compare_words": (compare.compare_words, "src/repro/kernels/compare.py:25"),
+        "delta_record_words": (delta_create.delta_record_words,
+                               "src/repro/kernels/delta_create.py:25"),
+        "delta_apply_words": (delta_apply.delta_apply_words,
+                              "src/repro/kernels/delta_apply.py:41"),
     }
 
 
@@ -131,8 +167,9 @@ def reset_counts() -> None:
         wrapper.launches = 0
 
 
-def read_counts() -> dict:
-    return {name: wrapper.launches for name, (wrapper, _) in kernel_table().items()}
+def read_counts(names) -> dict:
+    table = kernel_table()
+    return {name: table[name][0].launches for name in names}
 
 
 # --------------------------------------------------------------------------- phase 1
@@ -224,6 +261,127 @@ def kernels_vs_plain(dev, gen, errs: dict, big_words: int = MiB // 4) -> None:
         want = ref.batch_copy_ref(src_pool, dst_pool, si, di)
         got = ops.batch_copy(src_pool, dst_pool.clone(), si, di)
         check(same_bits(got, want), f"ops.batch_copy {dtype}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def record_err(got, want) -> int:
+    """Largest word difference over the four parts of a delta record."""
+    return max(max_abs_err(g.reshape(-1).view(torch.int32), w.reshape(-1).view(torch.int32))
+               if g.dtype != torch.bool else int(bool(g) != bool(w))
+               for g, w in zip(got, want))
+
+
+@phase("2b slice-2 kernels against their plain versions")
+def kernels_vs_plain_2(dev, gen, errs: dict, big_words: int = MiB // 4) -> None:
+    from repro_torch.kernels import compare, delta_apply, delta_create, dif, fill, ops, ref
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0), err)
+        check(err == 0, f"{name}: kernel disagrees with its plain version (max err {err})")
+
+    counts = sorted({1, 3, 5, 257, 1000, 4099, min(65539, big_words), big_words})
+    # fill: ragged counts, the three pattern widths, PE spans
+    for n in counts:
+        for pat in ((0xDEADBEEF,), (1, 0x80000001), (7, 8, 0xFFFFFFFF, 0)):
+            for n_pe in (1, 3):
+                got = fill.fill_words(n, pat, n_pe=n_pe, device=dev)
+                note("fill_words", max_abs_err(got, fill.fill_words_plain(n, pat, device=dev)))
+                check(same_bits(got, ref.fill_ref((n,), pat, device=dev)), f"fill {n} {pat}")
+    # compare: no difference, at word 0, in the middle, at the last word;
+    # an unaligned view (scalar path)
+    base = rand_words(gen, big_words + 8, dev)
+    for n in counts:
+        for start in (0, 1):
+            a = base[start:start + n]
+            for where in (None, 0, n // 2, n - 1):
+                b = a.clone()
+                if where is not None:
+                    b.view(torch.int32)[where] ^= 1 << (where % 31)
+                eq, first = compare.compare_words(a, b)
+                peq, pfirst = compare.compare_words_plain(a, b)
+                note("compare_words", max_abs_err(first.reshape(1), pfirst.reshape(1))
+                     + int(bool(eq) != bool(peq)))
+                want = (-1 if where is None else where)
+                check(bool(eq) == (where is None) and int(first) == want,
+                      f"compare of {n} words with a difference at {where}")
+    # delta records: 0, a few (word 0 among them), exactly cap and cap + 1
+    # differences, and an overflow far past cap
+    for n in (257, 1000, 4099, big_words):
+        src = base[:n]
+        for n_diff, cap in ((0, 64), (3, 64), (64, 64), (65, 64), (min(n, 5000), 100),
+                            (n // 3, n // 2)):
+            # word 0 always changes, then n_diff - 1 others
+            pos = torch.cat([torch.zeros(min(n_diff, 1), dtype=torch.int64, device=dev),
+                             torch.randperm(n - 1, generator=gen, device=gen.device)
+                             [:max(n_diff - 1, 0)].to(dev) + 1])
+            changed = src.clone()
+            changed.view(torch.int32)[pos] ^= 0x10001
+            rec = delta_create.delta_record_words(changed, src, cap)
+            plain = delta_create.delta_record_words_plain(changed, src, cap)
+            note("delta_record_words", record_err(rec, plain))
+            check(int(rec[2]) == n_diff and bool(rec[3]) == (n_diff > cap),
+                  f"delta count {int(rec[2])} overflow {bool(rec[3])} for {n_diff} > {cap}")
+            # apply the record: a round trip when it did not overflow
+            out = delta_apply.delta_apply_words(src, rec[0], rec[1])
+            note("delta_apply_words", max_abs_err(
+                out, delta_apply.delta_apply_words_plain(src, rec[0], rec[1])))
+            if n_diff <= cap:
+                check(same_bits(out, changed), f"delta round trip, {n_diff} of {n} words")
+    # apply: hand-made records with duplicates, -1 pads and offsets past the end
+    for n, cap in ((1000, 16), (4099, 4096), (big_words, 65536)):
+        ref_words = base[:n]
+        off = torch.randint(-n // 8, n + n // 8, (cap,), generator=gen, dtype=torch.int64,
+                            device=gen.device).to(torch.int32).to(dev)
+        off[: cap // 4] = off[cap // 4: cap // 2]  # duplicates, later ones win
+        data = rand_words(gen, cap, dev)
+        out = delta_apply.delta_apply_words(ref_words, off, data)
+        note("delta_apply_words", max_abs_err(
+            out, delta_apply.delta_apply_words_plain(ref_words, off, data)))
+        check(same_bits(out, ref.delta_apply_ref(ref_words, off, data)),
+              f"delta apply of a hand-made record, cap {cap}")
+    # compare, delta create and delta apply read nothing back to the host:
+    # PyTorch raises on any synchronizing call in this mode
+    if dev.type == "cuda":
+        src = base[:big_words]
+        changed = src.clone()
+        changed.view(torch.int32)[::997] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ops.compare(src, changed)
+            o, d, _, _ = ops.delta_create(changed, src, cap=4096)
+            ops.delta_apply(src, o, d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the ops layer over dtypes: fill_like, compare, delta round trip
+    for dtype, shape in ((torch.float32, (513, 130)), (torch.bfloat16, (1000, 6)),
+                         (torch.uint32, (big_words,))):
+        x = rand_tensor(gen, shape, dtype, dev)
+        y = x.clone()
+        y.view(-1).view(torch.uint8)[5] ^= 0xFF
+        check(bool(ops.compare(x, x)[0]) and int(ops.compare(x, y)[1]) == 1,
+              f"ops.compare {dtype}")
+        o, d, c, ov = ops.delta_create(y, x, cap=8)
+        check(int(c) == 1 and not bool(ov) and same_bits(ops.delta_apply(x, o, d), y),
+              f"ops delta round trip {dtype}")
+        f = ops.fill_like(x, (0xABABABAB,))
+        check(same_bits(f.view(-1).view(torch.uint8),
+                        torch.full((x.numel() * x.element_size(),), 0xAB, dtype=torch.uint8,
+                                   device=dev)), f"fill_like {dtype}")
+    # DIF over 1 MiB of 512-byte blocks, one block corrupted
+    words = base[:big_words]
+    framed = dif.dif_insert(words, ref_tag=5)
+    check(same_bits(host(framed), ref.dif_insert_ref(host(words), ref_tag=5)), "dif_insert")
+    check(bool(dif.dif_check(framed).all()), "dif_check of intact blocks")
+    bad = framed.clone()
+    bad.view(torch.int32)[17, 3] ^= 1
+    ok = dif.dif_check(bad)
+    check(torch.equal(ok.cpu(), ref.dif_check_ref(host(bad))) and not bool(ok[17])
+          and int(ok.sum()) == ok.numel() - 1, "dif_check of a corrupted block")
+    check(same_bits(dif.dif_strip(framed), words), "dif_strip")
+    check(same_bits(host(dif.dif_update(bad, ref_tag=5))[:, 128:],
+                    ref.dif_insert_ref(host(dif.dif_strip(bad)), ref_tag=5)[:, 128:]),
+          "dif_update")
     if dev.type == "cuda":
         torch.cuda.synchronize()
 
@@ -340,6 +498,154 @@ def real_sizes(dev, gen, sizes=(4 * KiB, MiB, 64 * MiB, GiB), leaf_bytes=256 * M
     print(f"batch_copy of {n_pages} x {page_bytes} B pages in a {pool_pages}-page pool: ok")
     device.drain()
     shapes.update(pool=(src_pool, dst_pool, si, di))
+    return shapes
+
+
+# --------------------------------------------------------------------------- phases 3b and 4b
+@phase("3b slice-2 main path")
+def main_path_2(dev, gen) -> None:
+    """The whole quickstart (delta section included), fill, compare, DIF and
+    cache-flush descriptors, and the ``dto`` layer under ``dto_enabled``."""
+    from repro_torch.core import OpType, WorkDescriptor, dto, dto_enabled, make_device
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ref import int32_bits
+
+    device = make_device(n_instances=2, policy="least_loaded", device=dev)
+    rng = np.random.default_rng(0)
+    # --- async memcpy
+    x = torch.as_tensor(rng.normal(size=(1024, 128)), dtype=torch.float32).to(dev)
+    fut = device.memcpy_async(x)
+    check(same_bits(_ok(fut, "memcpy"), x), "memcpy result")
+    # --- chaining: a host continuation when the CRC retires
+    crc_hex = device.crc32_async(x).then(lambda c: f"0x{int(c):08x}")
+    check(_ok(crc_hex, "crc32.then") == f"0x{ref.crc32_ref(x):08x}", "crc32 .then != zlib")
+    # --- dependency fences
+    gate = device.promise()
+    fenced = device.memcpy_async(x, after=[gate])
+    device.kick()
+    check(not fenced.done(), "fenced copy ran before its promise")
+    gate.set_result(None)
+    check(same_bits(_ok(fenced, "fenced memcpy"), x), "fenced memcpy result")
+    # --- delta records (incremental state)
+    base_np = np.random.default_rng(1).integers(0, 2**31, 4096).astype(np.int32)
+    base = torch.from_numpy(base_np).view(torch.uint32).to(dev)
+    changed = base.clone()
+    changed.view(torch.int32)[torch.tensor([7, 99, 2048], device=dev)] += 1
+    offsets, data, count, overflow = _ok(device.delta_create_async(changed, base, cap=64),
+                                         "delta_create")
+    restored = device.delta_apply(base, offsets, data)
+    check(same_bits(restored, changed), "delta round trip")
+    check(int(count) == 3 and not bool(overflow), "delta count")
+    print(f"delta: {int(count)} changed words, overflow={bool(overflow)}; roundtrip exact")
+    # --- batch descriptor
+    descs = [WorkDescriptor(op=OpType.MEMCPY, src=torch.full((8, 128), float(i), device=dev))
+             for i in range(8)]
+    outs = _ok(device.batch_async(descs), "batch")
+    check(all(same_bits(o, d.src) for o, d in zip(outs, descs)), "batch results")
+    # --- fill, compare, DIF and cache flush descriptors
+    filled = _ok(device.fill_async([1, 2, 3, 4], 1000), "fill")
+    check(same_bits(filled, ref.fill_ref((1000,), (1, 2, 3, 4), device=dev)), "fill result")
+    y = x.clone()
+    y.view(-1)[77] += 1
+    eq, first = _ok(device.compare_async(x, y), "compare")
+    check(not bool(eq) and int(first) == 77, "compare result")
+    check(bool(device.compare(x, x.clone())[0]), "compare of equal buffers")
+    words = base  # 4096 words: 32 blocks of 512 bytes
+    framed = _ok(device.dif_insert_async(words), "dif_insert")
+    check(same_bits(host(framed), ref.dif_insert_ref(host(words))), "dif_insert result")
+    bad = framed.clone()
+    bad.view(torch.int32)[3, 0] ^= 1
+    ok = _ok(device.dif_check_async(bad), "dif_check")
+    check(torch.equal(ok.cpu(), ref.dif_check_ref(host(bad))), "dif_check result")
+    check(same_bits(_ok(device.dif_strip_async(framed), "dif_strip"), words), "dif_strip")
+    flush = device.submit(WorkDescriptor(op=OpType.CACHE_FLUSH, src=words))
+    check(_ok(flush, "cache_flush") == (), "cache_flush result")
+    # --- dto: the drop-in memcpy/memset/memcmp layer
+    with dto_enabled(device, min_bytes=8192):
+        big = rand_tensor(gen, (64, 128), torch.float32, dev)  # 32 KiB: offloaded
+        small = big[:4]  # 2 KiB: plain PyTorch
+        check(same_bits(dto.memcpy(big), big) and same_bits(dto.memcpy(small), small),
+              "dto.memcpy")
+        set_big = dto.memset(big, 0xAB)
+        check(bool((set_big.view(torch.int32) == int32_bits(0xABABABAB)).all()), "dto.memset bytes")
+        check(bool((dto.memset(small, 0xAB) == 171.0).all()), "dto.memset below threshold")
+        check(dto.memcmp(big, big.clone()) and not dto.memcmp(big, set_big), "dto.memcmp")
+    device.drain()
+    check(device.policy_stats["desclint_warnings"] == 0, "desclint warned on the flow")
+    print(f"policy={device.policy_stats['policy']} "
+          f"placements={dict(device.policy_stats['decisions'])}")
+
+
+def drifted(gen, leaf_words: torch.Tensor, frac: float):
+    """A copy of ``leaf_words`` with ``frac`` of its words changed (distinct
+    positions), and how many."""
+    n = leaf_words.numel()
+    k = int(n * frac)
+    pos = torch.randperm(n, generator=gen, device=gen.device)[:k].to(leaf_words.device)
+    out = leaf_words.clone()
+    out.view(torch.int32)[pos] ^= 0x00010001
+    return out, k
+
+
+@phase("4b slice-2 main path at real sizes")
+def real_sizes_2(dev, gen, sizes=(4 * KiB, MiB, 64 * MiB, GiB), leaf_bytes=256 * MiB,
+                 drift=0.005, cap_frac=0.25, dto_bytes=64 * MiB, dif_bytes=MiB) -> dict:
+    from repro_torch.core import dto, dto_enabled, make_device
+    from repro_torch.kernels import dif, fill, ref
+
+    device = make_device(n_instances=2, policy="least_loaded", device=dev)
+    shapes = {}
+    # fill and compare at the paper's sizes; compare hits its worst case
+    # (equal buffers, every word read) and then a difference at the last word
+    for nbytes in sizes:
+        n = nbytes // 4
+        f = _ok(device.fill_async([0x5A5A5A5A, 7], n), f"fill {nbytes} B")
+        check(same_bits(f, fill.fill_words_plain(n, (0x5A5A5A5A, 7), device=dev)),
+              f"fill {nbytes} B result")
+        g = f.clone()
+        eq, first = _ok(device.compare_async(f, g), f"compare {nbytes} B")
+        check(bool(eq) and int(first) == -1, f"compare {nbytes} B of equal buffers")
+        g.view(torch.int32)[-1] ^= 1
+        eq, first = _ok(device.compare_async(f, g), f"compare {nbytes} B")
+        check(not bool(eq) and int(first) == n - 1, f"compare {nbytes} B, last word")
+        print(f"fill + compare of {nbytes} B: ok")
+        del f, g
+    # a checkpoint leaf (bf16 [16384, 8192], 256 MiB): 0.5 % of its words
+    # drift between two checkpoints, the record holds 25 % of its words
+    cols = 8192
+    leaf = rand_tensor(gen, (leaf_bytes // 2 // cols, cols), torch.bfloat16, dev)
+    lw = leaf.view(-1).view(torch.uint32)
+    new_w, k = drifted(gen, lw, drift)
+    new = new_w.view(torch.bfloat16).view(leaf.shape)
+    cap = int(lw.numel() * cap_frac)
+    offsets, data, count, overflow = _ok(device.delta_create_async(new, leaf, cap=cap),
+                                         "delta_create leaf")
+    check(int(count) == k and not bool(overflow), f"leaf delta count {int(count)} != {k}")
+    restored = _ok(device.delta_apply_async(leaf, offsets, data), "delta_apply leaf")
+    check(same_bits(restored, new), "leaf not restored bit for bit")
+    print(f"delta of a {tuple(leaf.shape)} bf16 leaf: {k} words changed, cap {cap}; "
+          f"restored bit for bit")
+    shapes["delta"] = (lw, new_w, cap, offsets, data)
+    del restored
+    # dto of 64 MiB
+    with dto_enabled(device):
+        buf = rand_tensor(gen, (dto_bytes // 4,), torch.float32, dev)
+        check(same_bits(dto.memcpy(buf), buf), "dto.memcpy 64 MiB")
+        z = dto.memset(buf, 0)
+        check(not bool(z.view(torch.int32).any()), "dto.memset 64 MiB")
+        check(dto.memcmp(buf, buf.clone()) and not dto.memcmp(buf, z), "dto.memcmp 64 MiB")
+        print(f"dto memcpy/memset/memcmp of {dto_bytes} B: ok")
+        del buf, z
+    # DIF over 1 MiB of 512-byte blocks
+    words = rand_words(gen, dif_bytes // 4, dev)
+    framed = _ok(device.dif_insert_async(words), "dif_insert 1 MiB")
+    check(same_bits(host(framed), ref.dif_insert_ref(host(words))), "dif_insert 1 MiB")
+    check(bool(_ok(device.dif_check_async(framed), "dif_check 1 MiB").all()), "dif_check 1 MiB")
+    check(same_bits(_ok(device.dif_strip_async(framed), "dif_strip 1 MiB"), words),
+          "dif_strip 1 MiB")
+    print(f"DIF insert/check/strip of {dif_bytes} B in {framed.shape[0]} blocks: ok")
+    shapes["dif"] = words.view(-1, 128)
+    device.drain()
     return shapes
 
 
@@ -461,6 +767,72 @@ def times(dev, gen, pool, plain_words: int = MiB // 4, big: int = GiB,
     return rows
 
 
+@phase("5b slice-2 times")
+def times_2(dev, gen, shapes, big: int = GiB) -> list:
+    from repro_torch.kernels import compare, delta_apply, delta_create, fill
+    from repro_torch.kernels.ref import int32_bits
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev).zero_()
+    rows = []
+
+    def row(name, shape, nbytes_moved, ms, plain_ms, library_ms, library_call=None):
+        bound_ms, bound_by = _bound(nbytes_moved)
+        r = {"name": name, "shape": shape, "ms": ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "plain_ms": plain_ms, "plain_shape": shape,
+             "library_ms": library_ms}
+        if library_call:
+            r["library_call"] = library_call
+        rows.append(r)
+        print(f"{name:20s} {shape:28s} {ms:10.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
+              f"plain {plain_ms:.4f} ms  library {library_ms}")
+
+    # fill of 1 GiB with a 1-word pattern; Tensor.fill_ computes the same
+    n = big // 4
+    pat = (0x5A5A5A5A,)
+    dst32 = torch.empty(n, dtype=torch.int32, device=dev)
+    row("fill_words", "[268435456] u32 (1 GiB)", big,
+        cold_ms(lambda: fill.fill_words(n, pat, device=dev), 5, flush),
+        cold_ms(lambda: fill.fill_words_plain(n, pat, device=dev), 5, flush),
+        cold_ms(lambda: dst32.fill_(int32_bits(pat[0])), 5, flush), "Tensor.fill_")
+    for nbytes in (4 * KiB, MiB, 64 * MiB):
+        print(f"  fill_words at {nbytes} B (cold L2): "
+              f"{cold_ms(lambda: fill.fill_words(nbytes // 4, pat, device=dev), 50, flush):.4f} ms")
+    # compare of two equal 1 GiB buffers (every word read); torch.equal
+    # computes the equality half
+    a = rand_words(gen, n, dev)
+    b = a.clone()
+    a32, b32 = a.view(torch.int32), b.view(torch.int32)
+    row("compare_words", "2 x [268435456] u32 (1 GiB each)", 2 * big,
+        cold_ms(lambda: compare.compare_words(a, b), 5, flush),
+        cold_ms(lambda: compare.compare_words_plain(a, b), 5, flush),
+        cold_ms(lambda: torch.equal(a32, b32), 5, flush),
+        "torch.equal (the equality half only; returns to the host)")
+    for nbytes in (4 * KiB, MiB, 64 * MiB):
+        sa, sb = a[:nbytes // 4], b[:nbytes // 4]
+        print(f"  compare_words at {nbytes} B (cold L2): "
+              f"{cold_ms(lambda: compare.compare_words(sa, sb), 50, flush):.4f} ms")
+    del a, b, a32, b32, dst32
+    # the checkpoint leaf: 256 MiB, 0.5 % of its words changed, cap 25 %
+    lw, new_w, cap, offsets, data = shapes["delta"]
+    nb = lw.numel() * 4
+    shape = f"[{lw.numel()}] u32 (256 MiB), cap {cap}"
+    row("delta_record_words", shape, 2 * nb + 8 * cap,
+        cold_ms(lambda: delta_create.delta_record_words(new_w, lw, cap), 5, flush),
+        cold_ms(lambda: delta_create.delta_record_words_plain(new_w, lw, cap), 5, flush),
+        None)
+    row("delta_apply_words", shape, 2 * nb + 8 * cap,
+        cold_ms(lambda: delta_apply.delta_apply_words(lw, offsets, data), 5, flush),
+        cold_ms(lambda: delta_apply.delta_apply_words_plain(lw, offsets, data), 5, flush),
+        None)
+    # DIF over 1 MiB of 512-byte blocks: the CRC kernel with one chunk a block
+    from repro_torch.kernels import crc32, ops
+    blocks = shapes["dif"]
+    tabs = ops._tables(dev)
+    print(f"  crc32_chunk_states at the DIF shape {tuple(blocks.shape)} (cold L2): "
+          f"{cold_ms(lambda: crc32.crc32_chunk_states(blocks, tabs), 20, flush):.4f} ms")
+    return rows
+
+
 # --------------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -478,22 +850,36 @@ def main() -> int:
     build()
     errs: dict = {}
     kernels_vs_plain(dev, gen, errs)
+    kernels_vs_plain_2(dev, gen, errs)
+    # each slice's main path, with the counts set to 0 just before it and
+    # read just after it
     reset_counts()
     main_path(dev, gen)
     shapes = real_sizes(dev, gen)
     torch.cuda.synchronize()
-    counts = read_counts()
-    print(f"launches on the main path (phases 3 and 4): {counts}")
+    counts = read_counts(SLICE1)
+    print(f"launches on the slice-1 main path (phases 3 and 4): {counts}")
     check(all(v > 0 for v in counts.values()),
-          f"a kernel of the main path never launched: {counts}")
+          f"a kernel of the slice-1 main path never launched: {counts}")
+    reset_counts()
+    main_path_2(dev, gen)
+    shapes2 = real_sizes_2(dev, gen)
+    torch.cuda.synchronize()
+    counts2 = read_counts(SLICE2)
+    print(f"launches on the slice-2 main path (phases 3b and 4b): {counts2}")
+    check(all(v > 0 for v in counts2.values()),
+          f"a kernel of the slice-2 main path never launched: {counts2}")
     rows = {r["name"]: r for r in times(dev, gen, shapes["pool"])}
+    del shapes
+    rows.update({r["name"]: r for r in times_2(dev, gen, shapes2)})
     table = kernel_table()
     kernels = []
     for name, (_, replaces) in table.items():
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": errs.get(name, 0),
+            "launches": counts[name] if name in SLICE1 else counts2[name],
+            "max_abs_err": errs.get(name, 0),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "plain_shape": r["plain_shape"],

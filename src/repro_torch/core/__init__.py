@@ -4,7 +4,11 @@ Entry point: ``Device`` / ``make_device``: policy-driven multi-instance
 submission returning ``Future`` objects; completion waiting is pluggable
 (``WaitPolicy``: spin / pause / umwait / interrupt) with set-oriented
 ``wait_any`` / ``wait_all`` / ``as_completed`` on the device.  Engines run
-on the GPU unless the caller passes ``device="cpu"``."""
+on the GPU unless the caller passes ``device="cpu"``.  ``dto`` /
+``dto_enabled`` are the drop-in memcpy/memset/memcmp layer (DTO analogue).
+
+The deprecated ``Stream`` / ``make_stream`` shims were removed."""
+from repro_torch.core.api import dto, dto_enabled
 from repro_torch.core.completion import (
     WAIT_POLICIES,
     CompletionSet,
@@ -86,7 +90,18 @@ __all__ = [
     "WorkDescriptor",
     "WorkQueue",
     "WQConfig",
+    "dto",
+    "dto_enabled",
     "get_policy",
     "get_wait_policy",
     "make_device",
 ]
+
+
+def __getattr__(name: str):
+    if name in ("Stream", "make_stream"):
+        raise AttributeError(
+            f"repro_torch.core.{name} was removed: the deprecated Stream shim API "
+            "is gone. Use repro_torch.core.make_device / Device; submissions "
+            "return Future objects.")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -49,15 +49,12 @@ from repro_torch.core.descriptor import (
 )
 from repro_torch.core.perfmodel import DEFAULT_MODEL, EngineModel
 from repro_torch.core.queues import Submittable, WorkQueue, WQConfig
+from repro_torch.kernels import dif as dif_ops
 from repro_torch.kernels import ops
 
 #: ops of the JAX package's engine that this port does not run yet; their
 #: descriptors resolve Status.ERROR with a NotImplementedError message
-UNPORTED_OPS = (
-    OpType.FILL, OpType.COMPARE, OpType.COMPARE_PATTERN, OpType.DUALCAST,
-    OpType.DELTA_CREATE, OpType.DELTA_APPLY, OpType.DIF_INSERT,
-    OpType.DIF_CHECK, OpType.DIF_STRIP, OpType.FILL_VERIFY, OpType.CACHE_FLUSH,
-)
+UNPORTED_OPS = (OpType.COMPARE_PATTERN, OpType.DUALCAST, OpType.FILL_VERIFY)
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -691,7 +688,14 @@ class StreamEngine:
         return kw
 
     def _check_operands(self, d: WorkDescriptor) -> None:
-        for name in ("src", "dst_pool"):
+        # ``pattern`` is exempt: it is an immediate, as a DSA descriptor
+        # carries its fill pattern inline.  So are a batch copy's page
+        # tables, which ops.batch_copy takes from the host and range-checks
+        # there before the launch.
+        names = ("src", "src2", "dst_pool")
+        if d.op != OpType.BATCH_COPY:
+            names += ("src_idx",)
+        for name in names:
             t = getattr(d, name)
             if isinstance(t, torch.Tensor) and t.device.type != self.device.type:
                 raise ValueError(f"{d.op.value}: operand {name!r} is on {t.device}, "
@@ -711,14 +715,36 @@ class StreamEngine:
         if d.op in UNPORTED_OPS:
             raise NotImplementedError(
                 f"op {d.op.value!r} is not ported to repro_torch yet "
-                f"(ported: memcpy, crc32, copy_crc, batch_copy)")
+                f"(unported: {', '.join(o.value for o in UNPORTED_OPS)})")
         self._check_operands(d)
         if d.op == OpType.MEMCPY:
             out = ops.memcpy(d.src)
             t = t_op(nbytes)
+        elif d.op == OpType.FILL:
+            # no tensor operand: the buffer goes on the engine's device
+            out = ops.fill(d.pattern, d.n_words, device=self.device)
+            t = t_op(nbytes, read_factor=0.5)  # write-only
+        elif d.op == OpType.COMPARE:
+            out = ops.compare(d.src, d.src2)
+            t = t_op(nbytes)
         elif d.op == OpType.CRC32:
             out = ops.crc32(d.src)
             t = t_op(nbytes, read_factor=0.5)
+        elif d.op == OpType.DELTA_CREATE:
+            out = ops.delta_create(d.src, d.src2, cap=d.cap)
+            t = t_op(nbytes)
+        elif d.op == OpType.DELTA_APPLY:
+            out = ops.delta_apply(d.src, d.src_idx, d.src2)
+            t = t_op(nbytes)
+        elif d.op == OpType.DIF_INSERT:
+            out = dif_ops.dif_insert(d.src)
+            t = t_op(nbytes)
+        elif d.op == OpType.DIF_CHECK:
+            out = dif_ops.dif_check(d.src)
+            t = t_op(nbytes, read_factor=0.5)
+        elif d.op == OpType.DIF_STRIP:
+            out = dif_ops.dif_strip(d.src)
+            t = t_op(nbytes)
         elif d.op == OpType.BATCH_COPY:
             out = ops.batch_copy(d.src, d.dst_pool, d.src_idx, d.dst_idx)
             t = t_op(nbytes, batch_size=int(d.src_idx.shape[0]))
@@ -728,6 +754,9 @@ class StreamEngine:
             # read passes (memcpy at 1.0 + crc32 at 0.5) unfused
             out = ops.copy_crc(d.src)
             t = t_op(nbytes)
+        elif d.op == OpType.CACHE_FLUSH:
+            out = ()  # no device analogue; modeled only
+            t = t_op(nbytes, read_factor=0.5)
         else:
             raise ValueError(f"unsupported op {d.op}")
         return out, nbytes, t

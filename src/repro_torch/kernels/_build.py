@@ -36,12 +36,18 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _SIGNATURES = {
     "dsa_memcpy_words": (_P, _P, _LL, _I, _P),
     "dsa_batch_copy_pages": (_P, _P, _P, _P, _I, _LL, _LL, _LL, _P),
     "dsa_crc32_chunk_states": (_P, _P, _P, _I, _LL, _P),
     "dsa_copy_crc_words": (_P, _P, _P, _P, _I, _LL, _P),
     "dsa_gf2_fold": (_P, _P, _P, _I, _P),
+    "dsa_fill_words": (_P, _LL, _I, _U, _U, _U, _U, _P),
+    "dsa_compare_words": (_P, _P, _LL, _P, _P, _P, _P),
+    "dsa_delta_count": (_P, _P, _LL, _P, _P, _I, _P),
+    "dsa_delta_write": (_P, _LL, _P, _P, _P, _I, _LL, _P, _P, _P, _P, _P),
+    "dsa_delta_apply_words": (_P, _P, _LL, _P, _P, _LL, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -155,6 +155,328 @@ __global__ void gf2_fold_kernel(const uint32_t* __restrict__ states,
   out[0] = crc;
 }
 
+// ------------------------------------------------------------------ fill_words
+// Replaces kernels/fill.py fill_words / _fill_kernel.
+// Bound: bytes.  A fill reads nothing and writes each word once.
+// Design: the <= 4 pattern words arrive by value as one uint4 kernel argument
+// (a pattern of 1 or 2 words is repeated to 4), so a fill needs no
+// host-to-device copy.  p divides 4 and every span starts on a multiple of 4
+// words, so the uint4 is position-independent on a 16-byte-aligned output:
+// each thread stores it whole, a warp writes 512 contiguous bytes per store.
+// The ragged tail takes word i % 4 of the pattern.  n_pe spans as in memcpy.
+__global__ void fill_words_kernel(uint32_t* __restrict__ dst, long long n,
+                                  long long span, uint4 pat, bool vec) {
+  const long long begin = static_cast<long long>(blockIdx.y) * span;
+  const long long end = min(begin + span, n);
+  if (begin >= end) return;
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long done = 0;
+  if (vec) {
+    const long long nv = (end - begin) / 4;
+    uint4* d4 = reinterpret_cast<uint4*>(dst + begin);
+    for (long long i = tid; i < nv; i += stride) d4[i] = pat;
+    done = nv * 4;
+  }
+  const uint32_t w[4] = {pat.x, pat.y, pat.z, pat.w};
+  for (long long i = begin + done + tid; i < end; i += stride) dst[i] = w[i & 3];
+}
+
+// ------------------------------------------------------------------ compare_words
+// Replaces kernels/compare.py compare_words / _compare_kernel together with
+// the jnp reduction of its per-block records in ops.compare.
+// Bound: bytes, the two buffers read once each.
+// Design: a grid-stride loop of 16-byte loads; each thread stops at its first
+// mismatch (its later words have larger indices).  The warp's least index
+// goes to state[0] by one atomicMin per warp; the last CTA to finish (a
+// ticket in state[1]) turns it into the pair (equal?, first | -1), so the
+// result needs no host sync and no reduction launch.  state is set by
+// cudaMemsetAsync on the stream before the launch.
+constexpr unsigned kNoDiff = 0xFFFFFFFFu;
+
+__global__ void compare_words_kernel(const uint32_t* __restrict__ a,
+                                     const uint32_t* __restrict__ b,
+                                     long long n, bool vec,
+                                     unsigned* __restrict__ state,
+                                     bool* __restrict__ equal,
+                                     int32_t* __restrict__ first) {
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  unsigned mine = kNoDiff;
+  long long done = 0;
+  if (vec) {
+    const long long nv = n / 4;
+    const uint4* a4 = reinterpret_cast<const uint4*>(a);
+    const uint4* b4 = reinterpret_cast<const uint4*>(b);
+    for (long long i = tid; i < nv; i += stride) {
+      const uint4 x = a4[i];
+      const uint4 y = b4[i];
+      const unsigned m = (x.x != y.x) | (x.y != y.y) << 1 | (x.z != y.z) << 2 |
+                         (x.w != y.w) << 3;
+      if (m) {
+        mine = static_cast<unsigned>(4 * i) + (__ffs(m) - 1);
+        break;
+      }
+    }
+    done = nv * 4;
+  }
+  if (mine == kNoDiff) {
+    for (long long i = done + tid; i < n; i += stride) {
+      if (a[i] != b[i]) {
+        mine = static_cast<unsigned>(i);
+        break;
+      }
+    }
+  }
+  mine = __reduce_min_sync(0xFFFFFFFFu, mine);
+  if ((threadIdx.x & 31) == 0 && mine != kNoDiff) atomicMin(&state[0], mine);
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&state[1], 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    __threadfence();
+    const unsigned f = atomicAdd(&state[0], 0u);
+    *equal = f == kNoDiff;
+    *first = f == kNoDiff ? -1 : static_cast<int32_t>(f);
+  }
+}
+
+// ------------------------------------------------------------------ delta_record_words
+// Replaces kernels/delta_create.py delta_mask_words / _delta_mask_kernel
+// together with the jnp compaction of ops.delta_create (jnp.nonzero with
+// size=cap): the fixed-capacity record (offsets ascending, -1 pads; data,
+// 0 pads; the true count; overflow = count > cap) is built on the card.
+// Bound: bytes, src and ref read once plus cap * 8 bytes of record written.
+// Design: two passes over tiles of kDeltaTileGroups groups of 4 words.
+//   1. delta_count_kernel reads src and ref once (16-byte loads), stores one
+//      byte per group holding its 4-bit diff mask (n / 4 bytes, 1/16 of one
+//      input) and the tile's mismatch count.
+//   2. The wrapper's torch.cumsum of the per-tile counts (glue, as jnp glue
+//      is on the JAX side) gives each tile its first record slot.
+//   3. delta_write_kernel re-reads only the byte masks: a warp shuffle scan
+//      and a scan of the warp totals give each thread its slot in ascending
+//      word order, and each differing word's value is gathered from src.  A
+//      tile whose first slot is at or past cap returns at once, so the cap
+//      also caps the work.  All CTAs write the pads and CTA 0 the count.
+// Nothing is read back to the host.
+constexpr int kScanThreads = 256;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kDeltaRounds = 4;
+constexpr long long kDeltaTileGroups =
+    static_cast<long long>(kScanThreads) * kDeltaRounds;  // 4096 words a tile
+
+__device__ inline unsigned diff_nibble(const uint32_t* __restrict__ s,
+                                       const uint32_t* __restrict__ r,
+                                       long long g, long long n, bool vec) {
+  const long long w = 4 * g;
+  if (vec && w + 4 <= n) {
+    const uint4 x = reinterpret_cast<const uint4*>(s)[g];
+    const uint4 y = reinterpret_cast<const uint4*>(r)[g];
+    return (x.x != y.x) | (x.y != y.y) << 1 | (x.z != y.z) << 2 |
+           (x.w != y.w) << 3;
+  }
+  unsigned m = 0;
+  for (int k = 0; k < 4; ++k)
+    if (w + k < n && s[w + k] != r[w + k]) m |= 1u << k;
+  return m;
+}
+
+__global__ void delta_count_kernel(const uint32_t* __restrict__ src,
+                                   const uint32_t* __restrict__ ref,
+                                   long long n, bool vec,
+                                   uint8_t* __restrict__ mask,
+                                   int32_t* __restrict__ counts) {
+  const long long n_groups = (n + 3) / 4;
+  const long long g0 = static_cast<long long>(blockIdx.x) * kDeltaTileGroups;
+  int c = 0;
+  for (int r = 0; r < kDeltaRounds; ++r) {
+    const long long g = g0 + r * kScanThreads + threadIdx.x;
+    if (g < n_groups) {
+      const unsigned m = diff_nibble(src, ref, g, n, vec);
+      mask[g] = static_cast<uint8_t>(m);
+      c += __popc(m);
+    }
+  }
+  __shared__ int warp_sum[kScanWarps];
+  c = __reduce_add_sync(0xFFFFFFFFu, c);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int w = 0; w < kScanWarps; ++w) t += warp_sum[w];
+    counts[blockIdx.x] = t;
+  }
+}
+
+__device__ inline int warp_inclusive_scan(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(0xFFFFFFFFu, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+__global__ void delta_write_kernel(const uint32_t* __restrict__ src,
+                                   long long n,
+                                   const uint8_t* __restrict__ mask,
+                                   const int32_t* __restrict__ counts,
+                                   const int32_t* __restrict__ incl,
+                                   int n_tiles, long long cap,
+                                   int32_t* __restrict__ offsets,
+                                   uint32_t* __restrict__ data,
+                                   int32_t* __restrict__ count_out,
+                                   bool* __restrict__ overflow_out) {
+  const long long total = n_tiles ? incl[n_tiles - 1] : 0;
+  const long long gstride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long p = min(total, cap) +
+                     static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       p < cap; p += gstride) {
+    offsets[p] = -1;
+    data[p] = 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *count_out = static_cast<int32_t>(total);
+    *overflow_out = total > cap;
+  }
+  if (static_cast<int>(blockIdx.x) >= n_tiles) return;
+  const int tile_count = counts[blockIdx.x];
+  long long base = static_cast<long long>(incl[blockIdx.x]) - tile_count;
+  if (tile_count == 0 || base >= cap) return;  // uniform in the CTA
+
+  __shared__ int warp_tot[kScanWarps];
+  __shared__ int warp_pre[kScanWarps];
+  __shared__ int round_total;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long n_groups = (n + 3) / 4;
+  const long long g0 = static_cast<long long>(blockIdx.x) * kDeltaTileGroups;
+  for (int r = 0; r < kDeltaRounds; ++r) {
+    const long long g = g0 + r * kScanThreads + threadIdx.x;
+    const unsigned m = g < n_groups ? mask[g] : 0u;
+    const int c = __popc(m);
+    const int incl_w = warp_inclusive_scan(c, lane);
+    if (lane == 31) warp_tot[warp] = incl_w;
+    __syncthreads();
+    if (warp == 0) {
+      const int v = lane < kScanWarps ? warp_tot[lane] : 0;
+      const int iv = warp_inclusive_scan(v, lane);
+      if (lane < kScanWarps) warp_pre[lane] = iv - v;
+      if (lane == kScanWarps - 1) round_total = iv;
+    }
+    __syncthreads();
+    long long pos = base + warp_pre[warp] + incl_w - c;
+    for (unsigned mm = m; mm; mm &= mm - 1) {
+      if (pos < cap) {
+        const long long w = 4 * g + (__ffs(mm) - 1);
+        offsets[pos] = static_cast<int32_t>(w);
+        data[pos] = src[w];
+      }
+      ++pos;
+    }
+    base += round_total;
+    if (base >= cap) break;  // uniform: every thread read the same total
+  }
+}
+
+// ------------------------------------------------------------------ delta_apply_words
+// Replaces kernels/delta_apply.py delta_apply_words / _delta_apply_kernel.
+// Bound: bytes, ref read and out written once plus the record read.
+// Semantics: out = ref, then the entries in record order, skipping
+// off < 0 (pads) and off >= n; of entries naming one word the last wins.
+// The Pallas kernel walked the record serially on one core.  CTAs run in no
+// order, so duplicates take an explicit rule that stays O(cap) for a
+// checkpoint-sized record (millions of entries), where batch_copy's scan of
+// later entries would be O(cap^2).  The rule uses the output word itself as
+// the claim slot, so it needs no scratch of the buffer's size:
+//   1. out = ref (the copy kernel);
+//   2. every valid entry zeroes out[off];
+//   3. every valid entry i does atomicMax(out[off], i + 1): the word now
+//      names its last writer;
+//   4. entry i is the winner iff out[off] == i + 1 (a byte in win[], since
+//      a winner's store must not race a loser's read);
+//   5. winners store data[i].
+// Each of 2-5 is one grid-stride pass over the record; offsets on the card
+// are never read back to the host.
+__global__ void delta_zero_kernel(uint32_t* __restrict__ out, long long n,
+                                  const int32_t* __restrict__ offsets,
+                                  long long cap) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < cap; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int32_t off = offsets[i];
+    if (off >= 0 && off < n) out[off] = 0;
+  }
+}
+
+__global__ void delta_claim_kernel(uint32_t* __restrict__ out, long long n,
+                                   const int32_t* __restrict__ offsets,
+                                   long long cap) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < cap; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int32_t off = offsets[i];
+    if (off >= 0 && off < n)
+      atomicMax(reinterpret_cast<unsigned*>(out) + off,
+                static_cast<unsigned>(i + 1));
+  }
+}
+
+__global__ void delta_mark_kernel(const uint32_t* __restrict__ out,
+                                  long long n,
+                                  const int32_t* __restrict__ offsets,
+                                  long long cap, uint8_t* __restrict__ win) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < cap; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int32_t off = offsets[i];
+    win[i] = off >= 0 && off < n && out[off] == static_cast<uint32_t>(i + 1);
+  }
+}
+
+__global__ void delta_store_kernel(uint32_t* __restrict__ out,
+                                   const int32_t* __restrict__ offsets,
+                                   const uint32_t* __restrict__ data,
+                                   long long cap,
+                                   const uint8_t* __restrict__ win) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < cap; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    if (win[i]) out[offsets[i]] = data[i];
+  }
+}
+
+inline unsigned grid_for(long long items, int threads) {
+  long long blocks = (items + threads - 1) / threads;
+  if (blocks > kMaxCopyBlocks) blocks = kMaxCopyBlocks;
+  if (blocks < 1) blocks = 1;
+  return static_cast<unsigned>(blocks);
+}
+
+// The memcpy launch shared by dsa_memcpy_words and dsa_delta_apply_words.
+void launch_memcpy(const void* src, void* dst, long long n_words, int n_pe,
+                   cudaStream_t stream) {
+  long long span = (n_words + n_pe - 1) / n_pe;
+  span = (span + 3) / 4 * 4;  // keeps every span 16-byte aligned
+  const bool vec = aligned16(src) && aligned16(dst);
+  const long long per_span_blocks =
+      ((span + 3) / 4 + kCopyThreads - 1) / kCopyThreads;
+  long long cap = kMaxCopyBlocks / n_pe;
+  if (cap < 1) cap = 1;
+  const unsigned bx =
+      static_cast<unsigned>(per_span_blocks < cap ? per_span_blocks : cap);
+  memcpy_words_kernel<<<dim3(bx, n_pe), kCopyThreads, 0, stream>>>(
+      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst), n_words,
+      span, vec);
+}
+
 }  // namespace
 
 extern "C" {
@@ -165,18 +487,7 @@ const char* dsa_error_string(int err) {
 
 int dsa_memcpy_words(const void* src, void* dst, long long n_words, int n_pe,
                      void* stream) {
-  long long span = (n_words + n_pe - 1) / n_pe;
-  span = (span + 3) / 4 * 4;  // keeps every span 16-byte aligned
-  const bool vec = aligned16(src) && aligned16(dst);
-  const long long per_span_blocks =
-      ((span + 3) / 4 + kCopyThreads - 1) / kCopyThreads;
-  long long cap = kMaxCopyBlocks / n_pe;
-  if (cap < 1) cap = 1;
-  const unsigned bx =
-      static_cast<unsigned>(per_span_blocks < cap ? per_span_blocks : cap);
-  memcpy_words_kernel<<<dim3(bx, n_pe), kCopyThreads, 0, as_stream(stream)>>>(
-      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst), n_words,
-      span, vec);
+  launch_memcpy(src, dst, n_words, n_pe, as_stream(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,6 +527,86 @@ int dsa_gf2_fold(const void* states, const void* mat, void* out, int C,
   gf2_fold_kernel<<<1, 1, 0, as_stream(stream)>>>(
       static_cast<const uint32_t*>(states), static_cast<const uint32_t*>(mat),
       static_cast<uint32_t*>(out), C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dsa_fill_words(void* dst, long long n_words, int n_pe, unsigned p0,
+                   unsigned p1, unsigned p2, unsigned p3, void* stream) {
+  long long span = (n_words + n_pe - 1) / n_pe;
+  span = (span + 3) / 4 * 4;  // every span starts on a multiple of 4 words
+  const long long per_span_blocks =
+      ((span + 3) / 4 + kCopyThreads - 1) / kCopyThreads;
+  long long cap = kMaxCopyBlocks / n_pe;
+  if (cap < 1) cap = 1;
+  const unsigned bx =
+      static_cast<unsigned>(per_span_blocks < cap ? per_span_blocks : cap);
+  fill_words_kernel<<<dim3(bx, n_pe), kCopyThreads, 0, as_stream(stream)>>>(
+      static_cast<uint32_t*>(dst), n_words, span, make_uint4(p0, p1, p2, p3),
+      aligned16(dst));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// state: 2 uint32 of scratch; equal: 1 bool; first: 1 int32 (all on the card)
+int dsa_compare_words(const void* a, const void* b, long long n_words,
+                      void* state, void* equal, void* first, void* stream) {
+  cudaStream_t s = as_stream(stream);
+  unsigned* st = static_cast<unsigned*>(state);
+  cudaError_t err = cudaMemsetAsync(st, 0xFF, sizeof(unsigned), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(st + 1, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = aligned16(a) && aligned16(b);
+  compare_words_kernel<<<grid_for((n_words + 3) / 4, kCopyThreads),
+                         kCopyThreads, 0, s>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      n_words, vec, st, static_cast<bool*>(equal),
+      static_cast<int32_t*>(first));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mask: (n_words + 3) / 4 bytes; counts: n_tiles int32
+int dsa_delta_count(const void* src, const void* ref, long long n_words,
+                    void* mask, void* counts, int n_tiles, void* stream) {
+  if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  const bool vec = aligned16(src) && aligned16(ref);
+  delta_count_kernel<<<n_tiles, kScanThreads, 0, as_stream(stream)>>>(
+      static_cast<const uint32_t*>(src), static_cast<const uint32_t*>(ref),
+      n_words, vec, static_cast<uint8_t*>(mask), static_cast<int32_t*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// incl: the inclusive scan of counts; offsets/data: cap entries each;
+// count: 1 int32; overflow: 1 bool.  n_tiles may be 0 (an empty buffer).
+int dsa_delta_write(const void* src, long long n_words, const void* mask,
+                    const void* counts, const void* incl, int n_tiles,
+                    long long cap, void* offsets, void* data, void* count,
+                    void* overflow, void* stream) {
+  delta_write_kernel<<<n_tiles > 0 ? n_tiles : 1, kScanThreads, 0,
+                       as_stream(stream)>>>(
+      static_cast<const uint32_t*>(src), n_words,
+      static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(incl), n_tiles, cap,
+      static_cast<int32_t*>(offsets), static_cast<uint32_t*>(data),
+      static_cast<int32_t*>(count), static_cast<bool*>(overflow));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: n_words (written whole); win: cap bytes of scratch
+int dsa_delta_apply_words(const void* ref, void* out, long long n_words,
+                          const void* offsets, const void* data, long long cap,
+                          void* win, void* stream) {
+  cudaStream_t s = as_stream(stream);
+  if (n_words > 0) launch_memcpy(ref, out, n_words, 1, s);
+  if (cap > 0) {
+    uint32_t* o = static_cast<uint32_t*>(out);
+    const int32_t* off = static_cast<const int32_t*>(offsets);
+    uint8_t* w = static_cast<uint8_t*>(win);
+    const unsigned blocks = grid_for(cap, kCopyThreads);
+    delta_zero_kernel<<<blocks, kCopyThreads, 0, s>>>(o, n_words, off, cap);
+    delta_claim_kernel<<<blocks, kCopyThreads, 0, s>>>(o, n_words, off, cap);
+    delta_mark_kernel<<<blocks, kCopyThreads, 0, s>>>(o, n_words, off, cap, w);
+    delta_store_kernel<<<blocks, kCopyThreads, 0, s>>>(
+        o, off, static_cast<const uint32_t*>(data), cap, w);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

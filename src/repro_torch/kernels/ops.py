@@ -5,7 +5,9 @@ shift-matrix choices of the CRC, and the device: every wrapper below runs
 the CUDA kernels for CUDA tensors and their plain versions for CPU tensors
 (there is no global backend switch and no fallback from one to the other).
 
-Every function has a bit-exact oracle in ref.py.
+Every function has a bit-exact oracle in ref.py.  ``compare`` and
+``delta_create`` read nothing back to the host on CUDA tensors: their
+results stay on the card until the caller reads them.
 """
 from __future__ import annotations
 
@@ -17,7 +19,11 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import batch_copy as _bc
+from repro_torch.kernels import compare as _cmp
 from repro_torch.kernels import crc32 as _crc
+from repro_torch.kernels import delta_apply as _da
+from repro_torch.kernels import delta_create as _dc
+from repro_torch.kernels import fill as _fill
 from repro_torch.kernels import fused as _fused
 from repro_torch.kernels import memcpy as _mc
 from repro_torch.kernels import ref as _ref
@@ -73,6 +79,49 @@ def memcpy(x: torch.Tensor, *, n_pe: int = 1) -> torch.Tensor:
     flat = _bitcast_to_u32(x)
     out = _mc.memcpy_words(flat, n_pe=n_pe)
     return from_words(out, flat.shape[0], tuple(x.shape), x.dtype)
+
+
+def fill(pattern, n_words: int, *, n_pe: int = 1, device=None) -> torch.Tensor:
+    """Fill ``n_words`` uint32 words with a repeating 1/2/4-word pattern.
+    ``pattern`` is an immediate (ints, or a tensor read once); the buffer
+    goes on ``device``: by default the pattern tensor's device, else CUDA."""
+    if device is None:
+        device = pattern.device if isinstance(pattern, torch.Tensor) else "cuda"
+    return _fill.fill_words(n_words, pattern, n_pe=n_pe, device=device)
+
+
+def fill_like(x: torch.Tensor, pattern_words=(0,), **kw) -> torch.Tensor:
+    """Engine-backed buffer (re)initialization, e.g. grad-accumulator
+    zeroing: ``x``'s shape and dtype, filled on ``x``'s device."""
+    nbytes = _nbytes(x)
+    kw.setdefault("device", x.device)
+    words = fill(pattern_words, nbytes // 4, **kw)
+    return from_words(words, nbytes // 4, tuple(x.shape), x.dtype)
+
+
+def compare(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(equal?, first-diff word index | -1), DSA completion-record style:
+    a 0-d bool and a 0-d int32 on the operands' device."""
+    return _cmp.compare_words(_bitcast_to_u32(a), _bitcast_to_u32(b))
+
+
+def delta_create(src: torch.Tensor, ref: torch.Tensor, *, cap: int = 1024):
+    """Fixed-capacity delta record (offsets, data, count, overflow?)."""
+    return _dc.delta_record_words(_bitcast_to_u32(src), _bitcast_to_u32(ref), cap)
+
+
+def delta_apply(ref: torch.Tensor, offsets: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``ref`` with the record applied, in ``ref``'s shape and dtype.  The
+    record's offsets are int32 and its data uint32 words (other 4-byte
+    types are taken by their bits); it moves to ``ref``'s device."""
+    flat = _bitcast_to_u32(ref)
+    off = torch.as_tensor(offsets)
+    if off.is_floating_point() or off.dtype == torch.bool:
+        raise TypeError(f"delta_apply: offsets must be integers, got {off.dtype}")
+    off = off.to(flat.device, torch.int32).reshape(-1).contiguous()
+    words = _bitcast_to_u32(torch.as_tensor(data)).to(flat.device)
+    out = _da.delta_apply_words(flat, off, words)
+    return from_words(out, flat.shape[0], tuple(ref.shape), ref.dtype)
 
 
 # --------------------------------------------------------------------------- crc32

@@ -9,6 +9,7 @@ little-endian byte view.
 from __future__ import annotations
 
 import zlib
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -108,3 +109,101 @@ def batch_copy_ref(src_pool: torch.Tensor, dst_pool: torch.Tensor,
     for s, d in zip(src_idx.tolist(), dst_idx.tolist()):
         out[d].copy_(src_pool[s])
     return out
+
+
+# --------------------------------------------------------------------------- slice 2: fill, compare, delta, DIF
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """The same bits as int32: PyTorch on the CPU has no ``<``, ``scatter``
+    or ``index_put`` for uint32."""
+    return x.contiguous().reshape(-1).view(torch.int32)
+
+
+def int32_bits(w: int) -> int:
+    """The int32 value with the bits of the 32-bit word ``w`` (int32 views
+    carry uint32 words through ops the CPU lacks for uint32)."""
+    w &= 0xFFFFFFFF
+    return w - (1 << 32) if w & 0x80000000 else w
+
+
+def fill_ref(shape: Tuple[int, ...], pattern_words: Sequence[int],
+             device="cpu") -> torch.Tensor:
+    """A uint32 word buffer of ``shape`` holding the pattern repeated (2 or 4
+    words: the paper's 8/16-byte patterns)."""
+    n = 1
+    for d in shape:
+        n *= d
+    pat = torch.tensor([int32_bits(int(w)) for w in pattern_words], dtype=torch.int32,
+                       device=device)
+    reps = -(-n // pat.numel())
+    return pat.repeat(reps)[:n].view(torch.uint32).reshape(shape)
+
+
+def compare_ref(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(equal?, first differing word index or -1) over the word views."""
+    diff = _i32(a) != _i32(b)
+    idx = torch.nonzero(diff)
+    if idx.numel() == 0:
+        return torch.tensor(True), torch.tensor(-1, dtype=torch.int32)
+    return torch.tensor(False), idx[0, 0].to(torch.int32).cpu()
+
+
+def delta_create_ref(src: torch.Tensor, ref: torch.Tensor, cap: int):
+    """Delta record of ``src`` against ``ref``, 1-word granules: (offsets
+    [cap] int32 ascending with -1 pads, data [cap] uint32 with 0 pads, the
+    true count (int32, may exceed cap), overflow = count > cap)."""
+    s, r = _i32(src), _i32(ref)
+    idx = torch.nonzero(s != r).reshape(-1)
+    count = idx.numel()
+    k = min(count, cap)
+    offsets = torch.full((cap,), -1, dtype=torch.int32)
+    data = torch.zeros(cap, dtype=torch.int32)
+    offsets[:k] = idx[:k].to(torch.int32).cpu()
+    data[:k] = s[idx[:k]].cpu()
+    return (offsets, data.view(torch.uint32), torch.tensor(count, dtype=torch.int32),
+            torch.tensor(count > cap))
+
+
+def delta_apply_ref(ref: torch.Tensor, offsets: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """A copy of ``ref`` with the record applied entry by entry, skipping
+    ``off < 0`` (pads) and ``off >= n_words``, the last writer winning: the
+    semantics of the Pallas kernel's serial walk (repro/kernels/delta_apply.py).
+
+    The JAX package's own oracle (``repro.kernels.ref.delta_apply_ref``) and
+    its ``use_kernel=False`` path differ on one point: they clip the -1 pads
+    to offset 0 and write the old word 0 back there, and since the pads come
+    after the real entries, a change at word 0 is undone.  This oracle keeps
+    such a change."""
+    out = _i32(ref).clone()
+    n = out.numel()
+    off = offsets.reshape(-1).to(torch.int64).cpu()
+    vals = _i32(data).cpu()
+    valid = (off >= 0) & (off < n)
+    order = torch.arange(off.numel())
+    # the last entry naming each word: scatter the entry order with amax
+    last = torch.full((n,), -1, dtype=torch.int64).scatter_reduce(
+        0, off[valid], order[valid], "amax")
+    hit = last >= 0
+    out[hit.to(out.device)] = vals[last[hit]].to(out.device)
+    return out.view(ref.dtype).reshape(ref.shape)
+
+
+def dif_insert_ref(words: torch.Tensor, block_words: int = 128, ref_tag: int = 0) -> torch.Tensor:
+    """Append an 8-byte DIF (2 words: crc32, ref_tag << 16 | block#) to each
+    data block of ``block_words`` words.  Output [n_blocks, block_words+2]."""
+    w = _i32(words).cpu().numpy().view(np.uint32).reshape(-1, block_words)
+    out = np.zeros((w.shape[0], block_words + 2), dtype=np.uint32)
+    out[:, :block_words] = w
+    for i in range(w.shape[0]):
+        out[i, block_words] = zlib.crc32(w[i].astype("<u4").tobytes()) & 0xFFFFFFFF
+        out[i, block_words + 1] = ((ref_tag << 16) | (i & 0xFFFF)) & 0xFFFFFFFF
+    return torch.from_numpy(out.view(np.int32)).view(torch.uint32)
+
+
+def dif_check_ref(framed: torch.Tensor, block_words: int = 128) -> torch.Tensor:
+    f = _i32(framed).cpu().numpy().view(np.uint32).reshape(-1, block_words + 2)
+    return torch.tensor([zlib.crc32(row[:block_words].astype("<u4").tobytes()) & 0xFFFFFFFF
+                         == int(row[block_words]) for row in f], dtype=torch.bool)
+
+
+def dif_strip_ref(framed: torch.Tensor, block_words: int = 128) -> torch.Tensor:
+    return framed.reshape(-1, block_words + 2)[:, :block_words].reshape(-1).clone()

@@ -74,6 +74,31 @@ CASES = {
     "dif_2d": lambda c, A: _wd(c, op=c.OpType.DIF_INSERT, src=A(np.zeros((2, 128), np.uint32))),
     "dif_check_flat": lambda c, A: _wd(c, op=c.OpType.DIF_CHECK, src=A(np.zeros(130, np.uint32))),
     "dif_i32_ok": lambda c, A: _wd(c, op=c.OpType.DIF_INSERT, src=A(np.zeros(256, np.int32))),
+    # the slice-2 ops with torch operands: the same DESC1xx codes as the
+    # reference, and none on well-formed descriptors
+    "fill_two_words": lambda c, A: _wd(c, op=c.OpType.FILL,
+                                       pattern=A(np.asarray([1, 2], np.uint32)), n_words=100),
+    "compare_ok": lambda c, A: _wd(c, op=c.OpType.COMPARE, src=A(np.zeros(64, np.float32)),
+                                   src2=A(np.ones(64, np.float32))),
+    "compare_no_src2": lambda c, A: _wd(c, op=c.OpType.COMPARE, src=A(np.zeros(64, np.float32))),
+    "delta_ok": lambda c, A: _wd(c, op=c.OpType.DELTA_CREATE, src=A(np.zeros((4, 16), np.float32)),
+                                 src2=A(np.ones((4, 16), np.float32)), cap=16),
+    "delta_apply_ok": lambda c, A: _wd(c, op=c.OpType.DELTA_APPLY,
+                                       src=A(np.zeros(64, np.uint32)),
+                                       src_idx=A(np.arange(4, dtype=np.int32)),
+                                       src2=A(np.zeros(4, np.uint32))),
+    "delta_apply_no_idx": lambda c, A: _wd(c, op=c.OpType.DELTA_APPLY,
+                                           src=A(np.zeros(64, np.uint32)),
+                                           src2=A(np.zeros(4, np.uint32))),
+    "dif_check_ok": lambda c, A: _wd(c, op=c.OpType.DIF_CHECK, src=A(np.zeros((2, 130), np.uint32))),
+    "dif_strip_ok": lambda c, A: _wd(c, op=c.OpType.DIF_STRIP, src=A(np.zeros((2, 130), np.uint32))),
+    "dif_check_float": lambda c, A: _wd(c, op=c.OpType.DIF_CHECK,
+                                        src=A(np.zeros((2, 130), np.float32))),
+    "cache_flush": lambda c, A: _wd(c, op=c.OpType.CACHE_FLUSH, src=A(np.zeros(64, np.uint32))),
+    "batch_slice2_ops": lambda c, A: c.BatchDescriptor(descriptors=[
+        _wd(c, op=c.OpType.FILL, pattern=A(np.asarray([3], np.uint32)), n_words=8),
+        _wd(c, op=c.OpType.COMPARE, src=A(np.zeros(8, np.int32)), src2=A(np.zeros(8, np.int32))),
+        _wd(c, op=c.OpType.DIF_INSERT, src=A(np.zeros(128, np.uint32)))]),
     "batch_copy_idx": lambda c, A: _wd(c, op=c.OpType.BATCH_COPY,
                                        src=A(np.zeros((8, 32), np.float32)),
                                        dst_pool=A(np.zeros((8, 32), np.float32)),

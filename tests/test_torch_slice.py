@@ -1,12 +1,16 @@
 """The port's offload loop end to end against the JAX package's.
 
-The same flow (the quickstart without its delta section, plus copy+CRC,
-batch copy into a destination pool, a fused-doorbell burst and the unfused
-batch paths) runs on ``repro.core.make_device`` and on
+The same flow (the whole quickstart, delta section included, plus copy+CRC,
+batch copy into a destination pool, a fused-doorbell burst, the unfused
+batch paths, and fill, compare, DIF and cache-flush descriptors) runs on
+``repro.core.make_device`` and on
 ``repro_torch.core.make_device(device="cpu")``, both under the round-robin
 policy, from the same numpy inputs.  Every output byte, status and byte
 count, the policy's decisions, the engines' counters and the telemetry byte
-totals must be identical."""
+totals must be identical.  On the reference side ``delta_apply`` runs its
+``use_kernel=False`` path: its Pallas kernel cannot run on the installed jax,
+and the flow's record leaves word 0 alone, where that path is exact."""
+import functools
 import zlib
 
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ import pytest
 import torch
 
 import repro.core as J
+import repro.kernels.ops as jops
 import repro_torch.core as T
 from repro.core.telemetry import Telemetry as JTelemetry
 from repro_torch.analysis import lockcheck as tlock
@@ -45,8 +50,11 @@ def leaves(x):
 
 def inputs(seed=0):
     rng = np.random.default_rng(seed)
+    x = rng.normal(size=(64, 128)).astype(np.float32)
+    x2 = x.copy()
+    x2[40, 3] += 1
     return {
-        "x": rng.normal(size=(64, 128)).astype(np.float32),
+        "x": x,
         "batch": [np.full((8, 128), i, np.float32) for i in range(8)],
         "src_pool": rng.normal(size=(12, 8, 128)).astype(np.float32),
         "dst_pool": rng.normal(size=(10, 8, 128)).astype(np.float32),
@@ -57,6 +65,9 @@ def inputs(seed=0):
         "bf16_bits": (rng.normal(size=(40, 10)).astype(np.float32).view(np.uint32)
                       >> 16).astype(np.uint16),
         "ragged": [rng.normal(size=(8 + i, 32)).astype(np.float32) for i in range(3)],
+        # the quickstart's delta section: 4096 words, 3 of them changed
+        "delta_base": np.random.default_rng(1).integers(0, 2**31, 4096).astype(np.uint32),
+        "x2": x2,
     }
 
 
@@ -96,6 +107,25 @@ def run_flow(c, A, telemetry_cls, **kw):
             torch.from_numpy(data["bf16_bits"].view(np.int16).copy()).view(torch.bfloat16))
     futs["crc32_bf16"] = device.crc32_async(bf16)
     futs["memcpy_bf16"] = device.memcpy_async(bf16)
+    # the quickstart's delta section
+    base_np = data["delta_base"]
+    changed_np = base_np.copy()
+    changed_np[[7, 99, 2048]] += 1
+    base, changed = A(base_np), A(changed_np)
+    futs["delta_create"] = device.delta_create_async(changed, base, cap=64)
+    offsets, record, _, _ = futs["delta_create"].result()
+    futs["delta_apply"] = device.delta_apply_async(base, offsets, record)
+    futs["delta_overflow"] = device.delta_create_async(changed, base, cap=2)
+    # fill, compare, DIF and cache-flush descriptors
+    futs["fill"] = device.fill_async(A(np.asarray([1, 0x80000002], np.uint32)), 1000)
+    futs["fill4"] = device.fill_async(A(np.asarray([5, 6, 7, 8], np.uint32)), 64)
+    futs["compare_eq"] = device.compare_async(x, A(data["x"]))
+    futs["compare_ne"] = device.compare_async(x, A(data["x2"]))
+    futs["dif_insert"] = device.dif_insert_async(base)
+    framed = futs["dif_insert"].result()
+    futs["dif_check"] = device.dif_check_async(framed)
+    futs["dif_strip"] = device.dif_strip_async(framed)
+    futs["cache_flush"] = device.submit(c.WorkDescriptor(op=c.OpType.CACHE_FLUSH, src=base))
     results = {k: f.result() for k, f in futs.items()}
     device.drain()
     snap = tel.snapshot()
@@ -107,6 +137,7 @@ def run_flow(c, A, telemetry_cls, **kw):
         "ops": {k: f.op for k, f in futs.items()},
         "decisions": dict(device.policy_stats["decisions"]),
         "decisions_by_op": dict(device.policy_stats["decisions_by_op"]),
+        "desclint_warnings": device.policy_stats["desclint_warnings"],
         "counters": {e.name: {k: e.counters_snapshot()[k] for k in
                               ("completed", "bytes", "submitted", "fused_batches",
                                "fused_descs")} for e in device.engines},
@@ -123,14 +154,16 @@ def run_flow(c, A, telemetry_cls, **kw):
 
 @pytest.fixture(scope="module")
 def flows():
-    ref = run_flow(J, jnp.asarray, JTelemetry)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jops, "delta_apply", functools.partial(jops.delta_apply, use_kernel=False))
+        ref = run_flow(J, jnp.asarray, JTelemetry)
     port = run_flow(T, tt, T.Telemetry, device="cpu")
     return ref, port
 
 
 @pytest.mark.parametrize("key", ["held", "results", "status", "bytes", "ops", "decisions",
-                                 "decisions_by_op", "counters", "telemetry", "telemetry_wqs",
-                                 "nodes"])
+                                 "decisions_by_op", "desclint_warnings", "counters",
+                                 "telemetry", "telemetry_wqs", "nodes"])
 def test_slice_flow_matches_reference(flows, key):
     ref, port = flows
     assert port[key] == ref[key]
@@ -148,6 +181,19 @@ def test_slice_flow_is_right(flows):
     # one fused doorbell: the submit_many burst of 32
     assert port["counters"]["dsa0"]["fused_batches"] + port["counters"]["dsa1"][
         "fused_batches"] == 1
+    # one warning, DESC105 on the deliberately ragged copy batch; the fill,
+    # compare, delta and DIF descriptors add none
+    assert port["desclint_warnings"] == 1
+    # the delta round trip restores the changed words; the cap-2 record
+    # overflows with the true count
+    changed = data["delta_base"].copy()
+    changed[[7, 99, 2048]] += 1
+    assert port["results"]["delta_apply"] == [as_bytes(changed)]
+    count, overflow = port["results"]["delta_overflow"][2:]
+    assert count[2] == np.int32(3).tobytes() and overflow[2] == b"\x01"
+    assert port["results"]["compare_eq"][0][2] == b"\x01"
+    assert port["results"]["compare_ne"][1][2] == np.int32(40 * 128 + 3).tobytes()
+    assert port["results"]["dif_check"] == [as_bytes(np.ones(32, bool))]
 
 
 def test_batch_fusion_rule(monkeypatch):
@@ -178,18 +224,9 @@ def test_unported_op_resolves_error(op):
     words = torch.arange(256, dtype=torch.int32)
     pat = torch.tensor([7], dtype=torch.int32)
     operands = {
-        T.OpType.FILL: {"pattern": pat, "n_words": 64},
         T.OpType.FILL_VERIFY: {"pattern": pat, "n_words": 64},
-        T.OpType.COMPARE: {"src": words, "src2": words.clone()},
         T.OpType.COMPARE_PATTERN: {"src": words, "pattern": pat},
         T.OpType.DUALCAST: {"src": words},
-        T.OpType.DELTA_CREATE: {"src": words, "src2": words.clone(), "cap": 16},
-        T.OpType.DELTA_APPLY: {"src": words, "src_idx": torch.tensor([1], dtype=torch.int32),
-                               "src2": torch.tensor([5], dtype=torch.int32)},
-        T.OpType.DIF_INSERT: {"src": words},
-        T.OpType.DIF_CHECK: {"src": words.view(2, 128)},
-        T.OpType.DIF_STRIP: {"src": words.view(2, 128)},
-        T.OpType.CACHE_FLUSH: {"src": words},
     }[op]
     fut = device.submit(T.WorkDescriptor(op=op, **operands))
     device.drain()
@@ -205,6 +242,36 @@ def test_operand_on_another_device_is_an_error():
     fut = device.memcpy_async(torch.zeros(16, device="meta"))
     device.drain()
     assert fut.status == T.Status.ERROR and "runs on cpu" in fut.error
+
+
+@pytest.mark.parametrize("op,name", [("compare", "src2"), ("delta_create", "src2"),
+                                     ("delta_apply", "src_idx"), ("delta_apply", "src2")])
+def test_second_operands_on_another_device_are_an_error(op, name):
+    """src2 and src_idx are checked like src: the engine's own message, not
+    a failure inside the kernel layer."""
+    device = T.make_device(device="cpu")
+    words = torch.arange(64, dtype=torch.int32).view(torch.uint32)
+    off = torch.tensor([1, 2], dtype=torch.int32)
+    operands = {"compare": dict(src=words, src2=words.clone()),
+                "delta_create": dict(src=words, src2=words.clone(), cap=4),
+                "delta_apply": dict(src=words, src_idx=off, src2=words[:2].clone())}[op]
+    operands[name] = operands[name].to("meta")
+    fut = device.submit(T.WorkDescriptor(op=T.OpType(op), **operands))
+    device.drain()
+    assert fut.status == T.Status.ERROR
+    assert f"operand {name!r} is on meta" in fut.error and "runs on cpu" in fut.error
+
+
+@pytest.mark.parametrize("pat", [7, [7], (7, 8), torch.tensor([7, 8, 9, 10], dtype=torch.int32)],
+                         ids=["int", "list", "tuple", "tensor"])
+def test_fill_pattern_is_an_immediate(pat):
+    """The pattern may be ints, a list or a tensor on any device the host can
+    read; the buffer goes on the engine's device."""
+    device = T.make_device(device="cpu")
+    got = device.fill_async(pat, 10).result()
+    assert got.dtype == torch.uint32 and got.device.type == "cpu"
+    p = [pat] if isinstance(pat, int) else list(map(int, pat))
+    assert got.view(torch.int32).tolist() == [p[i % len(p)] for i in range(10)]
 
 
 def test_tracing_is_not_ported_yet():
