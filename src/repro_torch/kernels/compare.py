@@ -16,21 +16,13 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import compare_ref
 
 #: word indices are reported as int32, as the reference reports them
 MAX_WORDS = 2**31 - 1
 
-
-def compare_words_plain(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: the first index of the int32 views' mismatch
-    mask (``argmax`` of a bool mask is its first True)."""
-    diff = a.view(torch.int32) != b.view(torch.int32)
-    if diff.numel() == 0:
-        return (torch.ones((), dtype=torch.bool, device=a.device),
-                torch.full((), -1, dtype=torch.int32, device=a.device))
-    any_diff = diff.any()
-    first = torch.argmax(diff.to(torch.uint8)).to(torch.int32)
-    return ~any_diff, torch.where(any_diff, first, torch.full_like(first, -1))
+#: plain PyTorch version: the first index of the word views' mismatch mask
+compare_words_plain = compare_ref
 
 
 def compare_words(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

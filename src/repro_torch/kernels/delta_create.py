@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import delta_create_ref
 
 #: words of one CTA tile in the two kernels (kDeltaTileGroups * 4)
 TILE_WORDS = 4096
@@ -37,20 +38,9 @@ MAX_WORDS = 2**31 - 1
 Record = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def delta_record_words_plain(src: torch.Tensor, ref: torch.Tensor, cap: int) -> Record:
-    """Plain PyTorch version: ``nonzero`` of the int32 views' mismatch mask,
-    cut to ``cap`` and padded."""
-    s, r = src.view(torch.int32), ref.view(torch.int32)
-    idx = torch.nonzero(s != r).reshape(-1)
-    count = idx.numel()
-    k = min(count, cap)
-    offsets = torch.full((cap,), -1, dtype=torch.int32, device=src.device)
-    data = torch.zeros(cap, dtype=torch.int32, device=src.device)
-    offsets[:k] = idx[:k].to(torch.int32)
-    data[:k] = s[idx[:k]]
-    return (offsets, data.view(torch.uint32),
-            torch.tensor(count, dtype=torch.int32, device=src.device),
-            torch.tensor(count > cap, device=src.device))
+#: plain PyTorch version: ``nonzero`` of the word views' mismatch mask, cut
+#: to ``cap`` and padded
+delta_record_words_plain = delta_create_ref
 
 
 def delta_record_words(src: torch.Tensor, ref: torch.Tensor, cap: int) -> Record:

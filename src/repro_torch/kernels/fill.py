@@ -16,19 +16,17 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import int32_bits
+from repro_torch.kernels.ref import fill_ref
 
 PATTERN_WORDS = (1, 2, 4)
 
 
 def fill_words_plain(n_words: int, pattern: Sequence[int], *, n_pe: int = 1,
                      device="cpu") -> torch.Tensor:
-    """Plain PyTorch version: the pattern tiled over the buffer (as int32
-    words: the same bits)."""
+    """Plain PyTorch version: ``ref.fill_ref``, the pattern tiled over the
+    buffer (PE spans do not change the result)."""
     del n_pe
-    pat = torch.tensor([int32_bits(w) for w in pattern], dtype=torch.int32, device=device)
-    reps = -(-n_words // len(pattern))
-    return pat.repeat(reps)[:n_words].view(torch.uint32)
+    return fill_ref((n_words,), pattern, device=device)
 
 
 def pattern_words(pattern) -> tuple:

@@ -127,8 +127,9 @@ def int32_bits(w: int) -> int:
 
 def fill_ref(shape: Tuple[int, ...], pattern_words: Sequence[int],
              device="cpu") -> torch.Tensor:
-    """A uint32 word buffer of ``shape`` holding the pattern repeated (2 or 4
-    words: the paper's 8/16-byte patterns)."""
+    """A uint32 word buffer of ``shape`` on ``device`` holding the pattern
+    repeated (2 or 4 words: the paper's 8/16-byte patterns).  Also the plain
+    version of ``fill.fill_words``."""
     n = 1
     for d in shape:
         n *= d
@@ -139,28 +140,36 @@ def fill_ref(shape: Tuple[int, ...], pattern_words: Sequence[int],
 
 
 def compare_ref(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(equal?, first differing word index or -1) over the word views."""
+    """(equal?, first differing word index or -1) over the word views, as a
+    0-d bool and a 0-d int32 on ``a``'s device (``argmax`` of a bool mask is
+    its first True, so nothing is read back to the host).  Also the plain
+    version of ``compare.compare_words``."""
     diff = _i32(a) != _i32(b)
-    idx = torch.nonzero(diff)
-    if idx.numel() == 0:
-        return torch.tensor(True), torch.tensor(-1, dtype=torch.int32)
-    return torch.tensor(False), idx[0, 0].to(torch.int32).cpu()
+    if diff.numel() == 0:
+        return (torch.ones((), dtype=torch.bool, device=a.device),
+                torch.full((), -1, dtype=torch.int32, device=a.device))
+    any_diff = diff.any()
+    first = torch.argmax(diff.to(torch.uint8)).to(torch.int32)
+    return ~any_diff, torch.where(any_diff, first, torch.full_like(first, -1))
 
 
 def delta_create_ref(src: torch.Tensor, ref: torch.Tensor, cap: int):
-    """Delta record of ``src`` against ``ref``, 1-word granules: (offsets
-    [cap] int32 ascending with -1 pads, data [cap] uint32 with 0 pads, the
-    true count (int32, may exceed cap), overflow = count > cap)."""
+    """Delta record of ``src`` against ``ref``, 1-word granules, on
+    ``src``'s device: (offsets [cap] int32 ascending with -1 pads, data [cap]
+    uint32 with 0 pads, the true count (0-d int32, may exceed cap), overflow
+    = count > cap).  Also the plain version of
+    ``delta_create.delta_record_words``."""
     s, r = _i32(src), _i32(ref)
     idx = torch.nonzero(s != r).reshape(-1)
     count = idx.numel()
     k = min(count, cap)
-    offsets = torch.full((cap,), -1, dtype=torch.int32)
-    data = torch.zeros(cap, dtype=torch.int32)
-    offsets[:k] = idx[:k].to(torch.int32).cpu()
-    data[:k] = s[idx[:k]].cpu()
-    return (offsets, data.view(torch.uint32), torch.tensor(count, dtype=torch.int32),
-            torch.tensor(count > cap))
+    offsets = torch.full((cap,), -1, dtype=torch.int32, device=src.device)
+    data = torch.zeros(cap, dtype=torch.int32, device=src.device)
+    offsets[:k] = idx[:k].to(torch.int32)
+    data[:k] = s[idx[:k]]
+    return (offsets, data.view(torch.uint32),
+            torch.tensor(count, dtype=torch.int32, device=src.device),
+            torch.tensor(count > cap, device=src.device))
 
 
 def delta_apply_ref(ref: torch.Tensor, offsets: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
