@@ -31,9 +31,24 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      record of a 256 MiB bf16 checkpoint leaf with 0.5 % of its words
      changed and a cap of 25 % of its words, restored bit for bit, ``dto``
      of 64 MiB, DIF over 1 MiB of 512-byte blocks;
-  5. each kernel's time at the phase 4 / 4b shapes beside its bound, its
-     plain version's time and, where one PyTorch call computes the same
-     function, that call's time;
+  2c. each slice-3 kernel the same way: dualcast, compare-pattern and
+     fill-verify of 1, 127, 129 and 1024 words, 1 MiB and 64 MiB with 1-,
+     2- and 4-word patterns; compare-pattern with mismatches at word 0, at
+     the last word, at a random word and in every word; fill-verify's
+     buffer against fill_words and its pair against compare_pattern_words;
+  3c. the slice-3 main path: dualcast, compare-pattern and fill-verify
+     descriptors (desclint strict), a MomentOffloader round trip, and a
+     CheckpointManager (crc_impl="kernel" on the device, replicas=2): a
+     full save, two delta saves at 0.5 % drift, an overflowing save, the
+     newest primary corrupted and restored from the replica; every restore
+     bit-exact and every manifest CRC equal to zlib's;
+  4c. the same at real width: the parameters of tinyllama-1.1b (bf16) with
+     fp32 AdamW moments and an int32 step, cut to 2 of its 22 decoder
+     layers (219 M parameters, 2.19 GB a save), and dualcast,
+     compare-pattern and fill-verify of 4 KiB .. 1 GiB through the device;
+  5. each kernel's time at the phase 4 / 4b / 4c shapes beside its bound,
+     its plain version's time and, where one PyTorch call computes the same
+     function, that call's time; the save and restore seconds of phase 4c;
   6. the launch counts of each slice's main path, set to 0 just before it
      and read just after: every kernel of the path must have launched.
 
@@ -44,10 +59,13 @@ no result, where ``torch.cuda.is_available()`` is false.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -71,6 +89,14 @@ SOURCE = "src/repro_torch/kernels/csrc/dsa_kernels.cu"
 #: bytes read between two timed calls, to push the last call's data out of
 #: the 50 MB L2 (read, not written, so no dirty lines are left to evict)
 FLUSH_BYTES = 256 * MiB
+#: where phases 3c and 4c write their checkpoints (inside the checkout, under
+#: build/, which git ignores); removed when the script ends
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+#: tinyllama-1.1b (src/repro/configs/tinyllama_1_1b.py: arXiv:2401.02385),
+#: written out here; phase 4c cuts its 22 decoder layers to 2
+TINYLLAMA = dict(d_model=2048, n_heads=32, n_kv_heads=4, head_dim=64, d_ff=5632,
+                 vocab=32000, n_layers=22)
+TINYLLAMA_LAYERS_KEPT = 2
 
 
 class SmokeError(AssertionError):
@@ -138,12 +164,16 @@ SLICE1 = ("memcpy_words", "batch_copy_pages", "crc32_chunk_states", "gf2_fold",
           "copy_crc_words")
 SLICE2 = ("fill_words", "compare_words", "delta_record_words", "delta_apply_words",
           "crc32_chunk_states")
+#: slice 3 (phases 3c and 4c): the three new kernels, plus the moment
+#: offload's copies and the checkpoint's kernel CRC (copy+CRC and its fold)
+SLICE3 = ("dualcast_words", "compare_pattern_words", "fill_verify_words", "memcpy_words",
+          "copy_crc_words", "gf2_fold")
 
 
 def kernel_table():
     """name -> (wrapper with its ``launches`` count, file:line replaced)."""
     from repro_torch.kernels import (batch_copy, compare, crc32, delta_apply, delta_create,
-                                     fill, fused, memcpy)
+                                     dualcast, fill, fused, memcpy)
 
     return {
         "memcpy_words": (memcpy.memcpy_words, "src/repro/kernels/memcpy.py:20"),
@@ -159,6 +189,10 @@ def kernel_table():
                                "src/repro/kernels/delta_create.py:25"),
         "delta_apply_words": (delta_apply.delta_apply_words,
                               "src/repro/kernels/delta_apply.py:41"),
+        "compare_pattern_words": (compare.compare_pattern_words,
+                                  "src/repro/kernels/compare.py:61"),
+        "dualcast_words": (dualcast.dualcast_words, "src/repro/kernels/dualcast.py:22"),
+        "fill_verify_words": (fused.fill_verify_words, "src/repro/kernels/fused.py:106"),
     }
 
 
@@ -654,6 +688,334 @@ def real_sizes_2(dev, gen, errs: dict, sizes=(4 * KiB, MiB, 64 * MiB, GiB),
     return shapes
 
 
+# --------------------------------------------------------------------------- phase 2c
+def _pair_err(got, want) -> int:
+    """Difference of two (equal?, first | -1) pairs: 0 when they agree."""
+    return abs(int(got[1]) - int(want[1])) + int(bool(got[0]) != bool(want[0]))
+
+
+@phase("2c slice-3 kernels against their plain versions")
+def kernels_vs_plain_3(dev, gen, errs: dict,
+                       counts=(1, 127, 129, 4 * KiB // 4, MiB // 4, 64 * MiB // 4)) -> None:
+    from repro_torch.kernels import compare, dualcast, fill, fused
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0), err)
+        check(err == 0, f"{name}: kernel disagrees with its plain version (max err {err})")
+
+    wrappers = (dualcast.dualcast_words, compare.compare_pattern_words, fused.fill_verify_words)
+    before = [w.launches for w in wrappers]
+    base = rand_words(gen, max(counts) + 1, dev)
+    for n in counts:
+        # dualcast: aligned, and an unaligned view (the scalar path)
+        for src in (base[:n], base[1:n + 1]):
+            a, b = dualcast.dualcast_words(src)
+            pa, pb = dualcast.dualcast_words_plain(src)
+            note("dualcast_words", max(max_abs_err(a, pa), max_abs_err(b, pb)))
+            check(same_bits(a, src) and same_bits(b, src), f"dualcast of {n} words")
+        for pat in ((0xDEADBEEF,), (1, 0x80000001), (7, 8, 0xFFFFFFFF, 0)):
+            # compare-pattern: no mismatch, at word 0, at the last word, at a
+            # random word, in every word; an unaligned view of the same words
+            filled = fill.fill_words(n, pat, device=dev)
+            rnd = int(torch.randint(0, n, (1,), generator=gen, device=gen.device))
+            for where in (None, 0, n - 1, rnd, "every"):
+                x = filled.clone()
+                if where == "every":
+                    x.view(torch.int32).bitwise_xor_(0x00010001)
+                elif where is not None:
+                    x.view(torch.int32)[where] ^= 1 << (where % 31)
+                want = -1 if where is None else 0 if where == "every" else where
+                got = compare.compare_pattern_words(x, pat)
+                note("compare_pattern_words",
+                     _pair_err(got, compare.compare_pattern_words_plain(x, pat)))
+                check(bool(got[0]) == (where is None) and int(got[1]) == want,
+                      f"compare_pattern of {n} words, mismatch at {where}: {int(got[1])}")
+            # an unaligned view of the same words (the scalar path), its
+            # last word changed
+            y = torch.empty(n + 1, dtype=torch.uint32, device=dev)
+            y[1:] = filled
+            y.view(torch.int32)[n] ^= 1
+            got = compare.compare_pattern_words(y[1:], pat)
+            note("compare_pattern_words",
+                 _pair_err(got, compare.compare_pattern_words_plain(y[1:], pat)))
+            check(not bool(got[0]) and int(got[1]) == n - 1,
+                  f"compare_pattern of an unaligned view of {n} words")
+            # fill-verify: its buffer is fill_words's, its pair the kernel
+            # compare_pattern_words's on that buffer
+            f, ok, first = fused.fill_verify_words(n, pat, device=dev)
+            pf, pok, pfirst = fused.fill_verify_words_plain(n, pat, device=dev)
+            note("fill_verify_words", max(max_abs_err(f, pf), _pair_err((ok, first), (pok, pfirst))))
+            check(same_bits(f, filled), f"fill_verify buffer of {n} words != fill_words")
+            check(_pair_err((ok, first), compare.compare_pattern_words(f, pat)) == 0
+                  and bool(ok) and int(first) == -1, f"fill_verify pair of {n} words")
+    after = [w.launches for w in wrappers]
+    check(dev.type != "cuda" or all(a > b for a, b in zip(after, before)),
+          f"slice-3 launch counts {before} -> {after}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        loads = readback_loads()
+        check(len(loads) >= 2, f"fill_verify_kernel has {len(loads)} global loads, not the "
+                               f"vector and scalar readbacks")
+        print(f"fill_verify_kernel reads back with {len(loads)} global loads: "
+              + "; ".join(loads))
+
+
+def readback_loads() -> list:
+    """The global loads (SASS ``LDG``) in the built ``fill_verify_kernel``,
+    read with the toolkit's cuobjdump.  The kernel reads nothing from global
+    memory but the words it has just stored (its scratch goes through
+    atomics), so each load is a readback the compiler kept."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path())], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    body = next(c for c in sass.split("Function : ")[1:]
+                if "fill_verify_kernel" in c.split("\n", 1)[0])
+    # a SASS line: /*0150*/  LDG.E.128.STRONG.SYS R4, desc[UR6][R2.64] ;  /* 0x.. */
+    return [line.split("*/", 1)[1].split(";")[0].strip()
+            for line in body.splitlines() if re.search(r"\bLDG\b", line)]
+
+
+# --------------------------------------------------------------------------- phases 3c and 4c
+def model_tree(gen, dev, *, d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab, n_layers):
+    """A decoder's parameters (bf16, in the JAX package's names: embed,
+    final_norm, unembed, and per layer ln1, ln2, attn/wq wk wv wo, mlp/w1 w3
+    w2) with fp32 AdamW moments and an int32 step, as launch/train.py saves
+    them: {"params": ..., "opt": AdamWState}.  Values from ``gen``."""
+    from repro_torch.optim.adamw import AdamWState
+
+    D, H, KV, hd, F, V = d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab
+
+    def normal(*shape, scale=0.02, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def layer():
+        return {"ln1": normal(D), "ln2": normal(D),
+                "attn": {"wq": normal(D, H * hd), "wk": normal(D, KV * hd),
+                         "wv": normal(D, KV * hd), "wo": normal(H * hd, D)},
+                "mlp": {"w1": normal(D, F), "w3": normal(D, F), "w2": normal(F, D)}}
+
+    params = {"embed": normal(V, D), "final_norm": normal(D),
+              "layers": [layer() for _ in range(n_layers)], "unembed": normal(D, V)}
+    from repro_torch import tree as ttree
+
+    m = ttree.tree_map(lambda p: normal(*p.shape, scale=1e-3, dtype=torch.float32), params)
+    v = ttree.tree_map(lambda p: normal(*p.shape, scale=1e-6, dtype=torch.float32).abs(), params)
+    step = torch.tensor(100, dtype=torch.int32, device=dev)
+    return {"params": params, "opt": AdamWState(step=step, m=m, v=v)}
+
+
+def drift_tree(gen, tree, frac: float):
+    """``tree`` with ``frac`` of each leaf's words changed (distinct
+    positions) and the step advanced: the drift between two checkpoints."""
+    from repro_torch import tree as ttree
+
+    def drift(x):
+        if x.dim() == 0:
+            return x + 1
+        w, _ = drifted(gen, x.reshape(-1).view(torch.uint32), frac)
+        return w.view(x.dtype).view(x.shape)
+
+    return ttree.tree_map(drift, tree)
+
+
+def flip_tree(tree):
+    """Every word of every leaf changed: a save whose records all overflow."""
+    from repro_torch import tree as ttree
+
+    def flip(x):
+        if x.dim() == 0:
+            return x + 1
+        w = x.reshape(-1).view(torch.int32) ^ 0x00010001
+        return w.view(x.dtype).view(x.shape)
+
+    return ttree.tree_map(flip, tree)
+
+
+def tree_crcs(tree) -> dict:
+    """zlib CRC of each leaf's bytes, by the checkpoint's leaf name."""
+    from repro_torch import tree as ttree
+
+    return {k: zlib.crc32(memoryview(x.contiguous().reshape(-1).view(torch.uint8).cpu().numpy()))
+            & 0xFFFFFFFF for k, x in ttree.flatten_with_names(tree)}
+
+
+def check_manifest(directory: Path, step: int, crcs: dict) -> dict:
+    """The manifest of ``step``: every leaf's CRC is zlib's of its final
+    contents, a full leaf's file has that CRC, and a delta record's payload
+    CRC is zlib's of its offsets and words."""
+    d = directory / f"step_{step:08d}"
+    man = json.loads((d / "manifest.json").read_text())
+    check(set(man["leaves"]) == set(crcs), f"step {step}: leaf names")
+    for key, e in man["leaves"].items():
+        fn = key.replace("/", "__")
+        check(e["crc"] == crcs[key], f"step {step} {key}: manifest CRC != zlib")
+        if e["mode"] == "full":
+            check(zlib.crc32((d / f"{fn}.bin").read_bytes()) & 0xFFFFFFFF == e["crc"],
+                  f"step {step} {key}: file CRC")
+        elif e["mode"] == "delta":
+            z = np.load(d / f"{fn}.delta.npz")
+            payload = z["offsets"].tobytes() + z["data"].tobytes()
+            check(zlib.crc32(payload) & 0xFFFFFFFF == e["payload_crc"],
+                  f"step {step} {key}: payload CRC")
+    return man
+
+
+def check_restored(got, want, dev, what: str) -> None:
+    from repro_torch import tree as ttree
+
+    lg, tg = ttree.flatten(got)
+    lw, tw = ttree.flatten(want)
+    check(tg == tw, f"{what}: tree structure")
+    for g, w in zip(lg, lw):
+        check(g.device.type == "cpu" and same_bits(g.to(dev), w), f"{what}: a leaf differs")
+
+
+def checkpoint_cycle(device, gen, dev, tree, directory: Path, *, drift=0.005) -> dict:
+    """launch/train.py's save path with crc_impl="kernel" on ``device`` and a
+    replica: full save, two delta saves at ``drift``, an overflowing save,
+    the newest primary corrupted, then restored from the replica.  Returns
+    the seconds of each step."""
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+
+    shutil.rmtree(directory, ignore_errors=True)
+    shutil.rmtree(str(directory) + "-replica", ignore_errors=True)
+    mgr = CheckpointManager(CheckpointConfig(directory=str(directory), full_every=100,
+                                             replicas=2, async_save=True, crc_impl="kernel"),
+                            device=device)
+    trees = {1: tree}
+    trees[2] = drift_tree(gen, trees[1], drift)
+    trees[3] = drift_tree(gen, trees[2], drift)
+    trees[4] = flip_tree(trees[3])
+    secs = {}
+    modes = {}
+    for step in (1, 2, 3, 4):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        mgr.save(step, trees[step])
+        mgr.wait()
+        secs[f"save_{step}_s"] = time.perf_counter() - t0
+        man = check_manifest(directory, step, tree_crcs(trees[step]))
+        modes[step] = sorted({e["mode"] for e in man["leaves"].values()})
+    check(modes[1] == ["full"] and "delta" in modes[2] and "delta" in modes[3]
+          and "full" in modes[4] and mgr.stats["delta_overflows"] > 0,
+          f"save modes {modes}, stats {mgr.stats}")
+    # a delta step restores bit for bit
+    t0 = time.perf_counter()
+    s, got = mgr.restore(3, treedef_like=tree)
+    secs["restore_delta_s"] = time.perf_counter() - t0
+    check(s == 3, f"restore(3) gave step {s}")
+    check_restored(got, trees[3], dev, "delta restore")
+    del got
+    # corrupt the newest primary: the replica's copy of step 4 restores
+    target = sorted((directory / "step_00000004").glob("*.bin"))[0]
+    raw = bytearray(target.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    target.write_bytes(bytes(raw))
+    t0 = time.perf_counter()
+    s, got = mgr.restore(treedef_like=tree)
+    secs["restore_replica_s"] = time.perf_counter() - t0
+    check(s == 4, f"restore after corrupting the primary fell back to step {s}, not the replica")
+    check_restored(got, trees[4], dev, "replica restore")
+    print(f"checkpoint: modes {modes}, stats {mgr.stats}, "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    shutil.rmtree(directory, ignore_errors=True)
+    shutil.rmtree(str(directory) + "-replica", ignore_errors=True)
+    return secs
+
+
+def offload_round_trip(device, tree) -> None:
+    from repro_torch import tree as ttree
+    from repro_torch.optim.offload import MomentOffloader, plan
+
+    opt = tree["opt"]
+    off = MomentOffloader(device)
+    back = off.fetch(off.offload(opt))
+    for a, b in zip(ttree.leaves((opt.m, opt.v)), ttree.leaves((back.m, back.v))):
+        check(same_bits(a, b), "moment offload round trip")
+    nbytes = sum(x.numel() * x.element_size() for x in ttree.leaves((opt.m, opt.v)))
+    check(off.stats["bytes_moved"] == 2 * nbytes, f"offload bytes_moved {off.stats}")
+    p = plan(opt)
+    print(f"moment offload: {nbytes} B of moments, there and back; plan: "
+          f"{p.transfer_s_per_step * 1e3:.3f} ms a step (perfmodel, not measured)")
+
+
+def slice3_ops(device, gen, dev, sizes) -> None:
+    """Dualcast, compare-pattern and fill-verify descriptors at ``sizes``
+    bytes, each against its expected result."""
+    from repro_torch.kernels import fill
+
+    for nbytes in sizes:
+        n = nbytes // 4
+        x = rand_words(gen, n, dev)
+        a, b = _ok(device.dualcast_async(x), f"dualcast {nbytes} B")
+        check(same_bits(a, x) and same_bits(b, x) and a.data_ptr() != b.data_ptr(),
+              f"dualcast {nbytes} B result")
+        del a, b, x
+        pat = (0x5A5A5A5A, 7, 0xFFFFFFFF, 0)
+        filled, (ok, first) = _ok(device.fill_verify_async(pat, n), f"fill_verify {nbytes} B")
+        check(bool(ok) and int(first) == -1, f"fill_verify {nbytes} B pair")
+        check(same_bits(filled, fill.fill_words_plain(n, pat, device=dev)),
+              f"fill_verify {nbytes} B buffer")
+        eq, first = _ok(device.compare_pattern_async(filled, pat), f"compare_pattern {nbytes} B")
+        check(bool(eq) and int(first) == -1, f"compare_pattern {nbytes} B of the pattern")
+        filled.view(torch.int32)[n - 1] ^= 1
+        eq, first = _ok(device.compare_pattern_async(filled, pat), f"compare_pattern {nbytes} B")
+        check(not bool(eq) and int(first) == n - 1, f"compare_pattern {nbytes} B, last word")
+        print(f"dualcast + fill_verify + compare_pattern of {nbytes} B: ok")
+        del filled
+
+
+@phase("3c slice-3 main path")
+def main_path_3(dev, gen) -> None:
+    from repro_torch.core import make_device
+
+    device = make_device(n_instances=2, policy="least_loaded", device=dev, validate="strict")
+    tree = model_tree(gen, dev, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=160,
+                      vocab=512, n_layers=2)
+    slice3_path(device, gen, dev, tree, (4 * KiB, 4 * KiB + 4 * 129), CKPT_DIR / "small")
+    print(f"policy={device.policy_stats['policy']} "
+          f"placements={dict(device.policy_stats['decisions'])}")
+
+
+def slice3_path(device, gen, dev, tree, sizes, directory: Path) -> dict:
+    """The new ops at ``sizes``, the moment offload of ``tree``'s AdamW
+    state and the checkpoint cycle of ``tree``; desclint (strict) finds
+    nothing but DESC105 on the offload's batches."""
+    lint = lambda: device.policy_stats["desclint_warnings"]  # noqa: E731
+    slice3_ops(device, gen, dev, sizes)
+    check(lint() == 0, f"desclint warned {lint()} times on the slice-3 ops")
+    offload_round_trip(device, tree)
+    n_offload = lint()
+    # DESC105 (a warning): each tree's leaves differ in shape, so its MEMCPY
+    # batch runs per descriptor instead of fusing, as in the JAX package
+    check(n_offload <= 4, f"desclint warned {n_offload} times on 2 offload round trips")
+    secs = checkpoint_cycle(device, gen, dev, tree, directory)
+    device.drain()
+    check(lint() == n_offload, "desclint warned on the checkpoint's descriptors")
+    print(f"desclint (strict): {n_offload} DESC105 warnings on the offload's batches, "
+          f"none elsewhere")
+    return secs
+
+
+@phase("4c slice-3 main path at real width")
+def real_sizes_3(dev, gen, sizes=(4 * KiB, MiB, 64 * MiB, GiB)) -> dict:
+    from repro_torch import tree as ttree
+    from repro_torch.core import make_device
+
+    device = make_device(n_instances=2, policy="least_loaded", device=dev, validate="strict")
+    cfg = dict(TINYLLAMA, n_layers=TINYLLAMA_LAYERS_KEPT)
+    tree = model_tree(gen, dev, **cfg)
+    n_params = sum(x.numel() for x in ttree.leaves(tree["params"]))
+    n_bytes = sum(x.numel() * x.element_size() for x in ttree.leaves(tree))
+    print(f"tinyllama-1.1b, {TINYLLAMA_LAYERS_KEPT} of {TINYLLAMA['n_layers']} layers: "
+          f"{n_params} params, {n_bytes} B a save")
+    secs = slice3_path(device, gen, dev, tree, sizes, CKPT_DIR / "tinyllama")
+    return dict(secs, params=n_params, tree_bytes=n_bytes)
+
+
 # --------------------------------------------------------------------------- phase 5
 def cold_ms(fn, reps: int, flush: torch.Tensor) -> float:
     """Median device time of one call of ``fn`` with the L2 flushed before
@@ -831,17 +1193,96 @@ def times_2(dev, gen, shapes, big: int = GiB) -> list:
         cold_ms(lambda: delta_apply.delta_apply_words(lw, offsets, data), 5, flush),
         cold_ms(lambda: delta_apply.delta_apply_words_plain(lw, offsets, data), 5, flush),
         None)
-    # DIF over 1 MiB of 512-byte blocks: the CRC kernel with one chunk a block
-    from repro_torch.kernels import crc32, ops
+    # DIF over 1 MiB of 512-byte blocks: the CRC kernel with one chunk a block;
+    # its bound reads the data and writes the framed blocks once each
+    from repro_torch.kernels import crc32, dif, ops
     blocks = shapes["dif"]
     tabs = ops._tables(dev)
+    words = blocks.reshape(-1)
+    framed_bytes = blocks.shape[0] * (blocks.shape[1] + 2) * 4
+    dif_bound, dif_by = _bound(words.numel() * 4 + framed_bytes)
     print(f"  crc32_chunk_states at the DIF shape {tuple(blocks.shape)} (cold L2): "
           f"{cold_ms(lambda: crc32.crc32_chunk_states(blocks, tabs), 20, flush):.4f} ms")
+    print(f"  dif_insert of {words.numel() * 4} B in {blocks.shape[0]} blocks (cold L2): "
+          f"{cold_ms(lambda: dif.dif_insert(words), 20, flush):.4f} ms, "
+          f"bound {dif_bound:.6f} ms ({dif_by}: the data read and the framed blocks "
+          f"written once)")
+    return rows
+
+
+# --------------------------------------------------------------------------- phase 5c
+@phase("5c slice-3 times")
+def times_3(dev, gen, big: int = GiB) -> list:
+    from repro_torch.kernels import compare, dualcast, fused
+    from repro_torch.kernels.ref import int32_bits
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev).zero_()
+    rows = []
+
+    def row(name, shape, nbytes_moved, ms, plain_ms, library_ms, library_call):
+        bound_ms, bound_by = _bound(nbytes_moved)
+        rows.append({"name": name, "shape": shape, "ms": ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "plain_ms": plain_ms, "plain_shape": shape,
+                     "library_ms": library_ms, "library_call": library_call})
+        print(f"{name:20s} {shape:28s} {ms:10.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
+              f"plain {plain_ms:.4f} ms  library {library_ms:.4f} ms ({library_call})")
+
+    n = big // 4
+    shape = "[268435456] u32 (1 GiB)"
+    # dualcast: one read, two writes; the library does it as two copies
+    src = rand_words(gen, n, dev)
+    d1, d2 = torch.empty_like(src), torch.empty_like(src)
+    row("dualcast_words", shape, 3 * big,
+        cold_ms(lambda: dualcast.dualcast_words(src), 5, flush),
+        cold_ms(lambda: dualcast.dualcast_words_plain(src), 5, flush),
+        cold_ms(lambda: (d1.copy_(src), d2.copy_(src)), 5, flush), "2 x Tensor.copy_")
+    for nbytes in (4 * KiB, MiB, 64 * MiB):
+        s = src[:nbytes // 4]
+        print(f"  dualcast_words at {nbytes} B (cold L2): "
+              f"{cold_ms(lambda: dualcast.dualcast_words(s), 50, flush):.4f} ms")
+    del src, d1, d2
+    # compare-pattern of a buffer that holds the 4-word pattern (every word
+    # read); the library: torch.eq of the [n/p, p] view, .all(), on the card
+    pat = (0x5A5A5A5A, 7, 0xFFFFFFFF, 0)
+    a, _, _ = fused.fill_verify_words(n, pat, device=dev)
+    a32 = a.view(torch.int32)
+    pat32 = torch.tensor([int32_bits(w) for w in pat], dtype=torch.int32, device=dev)
+    row("compare_pattern_words", shape + ", 4-word pattern", big,
+        cold_ms(lambda: compare.compare_pattern_words(a, pat), 5, flush),
+        cold_ms(lambda: compare.compare_pattern_words_plain(a, pat), 5, flush),
+        cold_ms(lambda: torch.eq(a32.view(-1, 4), pat32).all(), 5, flush),
+        "torch.eq(a.view(-1, 4), pattern).all()")
+    for nbytes in (4 * KiB, MiB, 64 * MiB):
+        s = a[:nbytes // 4]
+        print(f"  compare_pattern_words at {nbytes} B (cold L2): "
+              f"{cold_ms(lambda: compare.compare_pattern_words(s, pat), 50, flush):.4f} ms")
+    del a, a32
+    # fill-verify with a 1-word pattern; the library: Tensor.fill_, then the
+    # compare above
+    pat1 = (0x5A5A5A5A,)
+    dst = torch.empty(n, dtype=torch.int32, device=dev)
+    p1 = torch.tensor([int32_bits(pat1[0])], dtype=torch.int32, device=dev)
+    row("fill_verify_words", shape + ", 1-word pattern", big,
+        cold_ms(lambda: fused.fill_verify_words(n, pat1, device=dev), 5, flush),
+        cold_ms(lambda: fused.fill_verify_words_plain(n, pat1, device=dev), 5, flush),
+        cold_ms(lambda: torch.eq(dst.fill_(int32_bits(pat1[0])).view(-1, 1), p1).all(), 5,
+                flush),
+        "Tensor.fill_ then torch.eq(x.view(-1, 1), pattern).all()")
+    for nbytes in (4 * KiB, MiB, 64 * MiB):
+        print(f"  fill_verify_words at {nbytes} B (cold L2): "
+              f"{cold_ms(lambda: fused.fill_verify_words(nbytes // 4, pat1, device=dev), 50, flush):.4f} ms")
     return rows
 
 
 # --------------------------------------------------------------------------- main
 def main() -> int:
+    try:
+        return run()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
@@ -858,6 +1299,7 @@ def main() -> int:
     errs: dict = {}
     kernels_vs_plain(dev, gen, errs)
     kernels_vs_plain_2(dev, gen, errs)
+    kernels_vs_plain_3(dev, gen, errs)
     # each slice's main path, with the counts set to 0 just before it and
     # read just after it
     reset_counts()
@@ -876,16 +1318,29 @@ def main() -> int:
     print(f"launches on the slice-2 main path (phases 3b and 4b): {counts2}")
     check(all(v > 0 for v in counts2.values()),
           f"a kernel of the slice-2 main path never launched: {counts2}")
+    reset_counts()
+    main_path_3(dev, gen)
+    ckpt = real_sizes_3(dev, gen)
+    torch.cuda.synchronize()
+    counts3 = read_counts(SLICE3)
+    print(f"launches on the slice-3 main path (phases 3c and 4c): {counts3}")
+    check(all(v > 0 for v in counts3.values()),
+          f"a kernel of the slice-3 main path never launched: {counts3}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     rows = {r["name"]: r for r in times(dev, gen, shapes["pool"])}
     del shapes
     rows.update({r["name"]: r for r in times_2(dev, gen, shapes2)})
+    del shapes2
+    rows.update({r["name"]: r for r in times_3(dev, gen)})
+    print("checkpoint of tinyllama-1.1b (2 of 22 layers), seconds: " + json.dumps(ckpt))
     table = kernel_table()
     kernels = []
     for name, (_, replaces) in table.items():
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": counts[name] if name in SLICE1 else counts2[name],
+            "launches": (counts[name] if name in SLICE1 else counts2[name] if name in SLICE2
+                         else counts3[name]),
             "max_abs_err": errs.get(name, 0),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -52,10 +52,6 @@ from repro_torch.core.queues import Submittable, WorkQueue, WQConfig
 from repro_torch.kernels import dif as dif_ops
 from repro_torch.kernels import ops
 
-#: ops of the JAX package's engine that this port does not run yet; their
-#: descriptors resolve Status.ERROR with a NotImplementedError message
-UNPORTED_OPS = (OpType.COMPARE_PATTERN, OpType.DUALCAST, OpType.FILL_VERIFY)
-
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     """The engine's device: ``None`` means CUDA.  Asking for CUDA where no
@@ -688,10 +684,12 @@ class StreamEngine:
         return kw
 
     def _check_operands(self, d: WorkDescriptor) -> None:
-        # ``pattern`` is exempt: it is an immediate, as a DSA descriptor
-        # carries its fill pattern inline.  So are a batch copy's page
-        # tables, which ops.batch_copy takes from the host and range-checks
-        # there before the launch.
+        # ``pattern`` (fill, compare_pattern, fill_verify) is exempt: it is
+        # an immediate, as a DSA descriptor carries its pattern inline, and
+        # fill.pattern_words reads it to the host.  So are a batch copy's
+        # page tables, which ops.batch_copy takes from the host and
+        # range-checks there before the launch.  Fill and fill_verify have no
+        # tensor operand: their buffer goes on the engine's device.
         names = ("src", "src2", "dst_pool")
         if d.op != OpType.BATCH_COPY:
             names += ("src_idx",)
@@ -712,14 +710,13 @@ class StreamEngine:
         def t_op(nb, **kw):
             return m.op_time(nb, **self._model_kw(kw, dst_tier, hops))
 
-        if d.op in UNPORTED_OPS:
-            raise NotImplementedError(
-                f"op {d.op.value!r} is not ported to repro_torch yet "
-                f"(unported: {', '.join(o.value for o in UNPORTED_OPS)})")
         self._check_operands(d)
         if d.op == OpType.MEMCPY:
             out = ops.memcpy(d.src)
             t = t_op(nbytes)
+        elif d.op == OpType.DUALCAST:
+            out = ops.dualcast(d.src)
+            t = t_op(nbytes, read_factor=1.5)
         elif d.op == OpType.FILL:
             # no tensor operand: the buffer goes on the engine's device
             out = ops.fill(d.pattern, d.n_words, device=self.device)
@@ -727,6 +724,9 @@ class StreamEngine:
         elif d.op == OpType.COMPARE:
             out = ops.compare(d.src, d.src2)
             t = t_op(nbytes)
+        elif d.op == OpType.COMPARE_PATTERN:
+            out = ops.compare_pattern(d.src, d.pattern)
+            t = t_op(nbytes, read_factor=0.5)
         elif d.op == OpType.CRC32:
             out = ops.crc32(d.src)
             t = t_op(nbytes, read_factor=0.5)
@@ -754,6 +754,12 @@ class StreamEngine:
             # read passes (memcpy at 1.0 + crc32 at 0.5) unfused
             out = ops.copy_crc(d.src)
             t = t_op(nbytes)
+        elif d.op == OpType.FILL_VERIFY:
+            # fused fill+compare_pattern: the verify reads the words just
+            # written in-kernel, so the pair costs one fill (0.5) instead of
+            # fill + compare_pattern (0.5 + 0.5) across two launches
+            out = ops.fill_verify(d.pattern, d.n_words, device=self.device)
+            t = t_op(nbytes, read_factor=0.5)
         elif d.op == OpType.CACHE_FLUSH:
             out = ()  # no device analogue; modeled only
             t = t_op(nbytes, read_factor=0.5)

@@ -45,6 +45,9 @@ _SIGNATURES = {
     "dsa_gf2_fold": (_P, _P, _P, _I, _P),
     "dsa_fill_words": (_P, _LL, _I, _U, _U, _U, _U, _P),
     "dsa_compare_words": (_P, _P, _LL, _P, _P, _P, _P),
+    "dsa_compare_pattern_words": (_P, _LL, _U, _U, _U, _U, _P, _P, _P, _P),
+    "dsa_fill_verify_words": (_P, _LL, _U, _U, _U, _U, _P, _P, _P, _P),
+    "dsa_dualcast_words": (_P, _P, _P, _LL, _P),
     "dsa_delta_count": (_P, _P, _LL, _P, _P, _I, _P),
     "dsa_delta_write": (_P, _LL, _P, _P, _P, _I, _LL, _P, _P, _P, _P, _P),
     "dsa_delta_apply_words": (_P, _P, _LL, _P, _P, _LL, _P, _P),

@@ -188,12 +188,43 @@ __global__ void fill_words_kernel(uint32_t* __restrict__ dst, long long n,
 // the jnp reduction of its per-block records in ops.compare.
 // Bound: bytes, the two buffers read once each.
 // Design: a grid-stride loop of 16-byte loads; each thread stops at its first
-// mismatch (its later words have larger indices).  The warp's least index
-// goes to state[0] by one atomicMin per warp; the last CTA to finish (a
-// ticket in state[1]) turns it into the pair (equal?, first | -1), so the
-// result needs no host sync and no reduction launch.  state is set by
-// cudaMemsetAsync on the stream before the launch.
+// mismatch (its later words have larger indices).  finish_first_diff turns
+// the threads' first mismatches into the pair (equal?, first | -1) on the
+// card, so the result needs no host sync and no reduction launch.
 constexpr unsigned kNoDiff = 0xFFFFFFFFu;
+
+// Bit k set where word k of the two 4-word groups differs.
+__device__ inline unsigned diff_mask4(const uint4 x, const uint4 y) {
+  return (x.x != y.x) | (x.y != y.y) << 1 | (x.z != y.z) << 2 |
+         (x.w != y.w) << 3;
+}
+
+// The reduction shared by compare_words, compare_pattern_words and
+// fill_verify_words.  Every thread of the CTA calls it with its own first
+// mismatching word index (kNoDiff for none).  The warp's least index goes to
+// state[0] by one __reduce_min_sync and one atomicMin per warp; the last CTA
+// to finish (a ticket in state[1]) writes (equal?, first | -1).  state is
+// set to {kNoDiff, 0} by reset_first_diff on the stream before the launch.
+__device__ inline void finish_first_diff(unsigned mine,
+                                         unsigned* __restrict__ state,
+                                         bool* __restrict__ equal,
+                                         int32_t* __restrict__ first) {
+  mine = __reduce_min_sync(0xFFFFFFFFu, mine);
+  if ((threadIdx.x & 31) == 0 && mine != kNoDiff) atomicMin(&state[0], mine);
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&state[1], 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    __threadfence();
+    const unsigned f = atomicAdd(&state[0], 0u);
+    *equal = f == kNoDiff;
+    *first = f == kNoDiff ? -1 : static_cast<int32_t>(f);
+  }
+}
 
 __global__ void compare_words_kernel(const uint32_t* __restrict__ a,
                                      const uint32_t* __restrict__ b,
@@ -211,10 +242,7 @@ __global__ void compare_words_kernel(const uint32_t* __restrict__ a,
     const uint4* a4 = reinterpret_cast<const uint4*>(a);
     const uint4* b4 = reinterpret_cast<const uint4*>(b);
     for (long long i = tid; i < nv; i += stride) {
-      const uint4 x = a4[i];
-      const uint4 y = b4[i];
-      const unsigned m = (x.x != y.x) | (x.y != y.y) << 1 | (x.z != y.z) << 2 |
-                         (x.w != y.w) << 3;
+      const unsigned m = diff_mask4(a4[i], b4[i]);
       if (m) {
         mine = static_cast<unsigned>(4 * i) + (__ffs(m) - 1);
         break;
@@ -230,20 +258,160 @@ __global__ void compare_words_kernel(const uint32_t* __restrict__ a,
       }
     }
   }
-  mine = __reduce_min_sync(0xFFFFFFFFu, mine);
-  if ((threadIdx.x & 31) == 0 && mine != kNoDiff) atomicMin(&state[0], mine);
-  __shared__ bool last;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(&state[1], 1u) == gridDim.x - 1;
+  finish_first_diff(mine, state, equal, first);
+}
+
+// ------------------------------------------------------------------ compare_pattern_words
+// Replaces kernels/compare.py compare_pattern_words / _compare_pattern_kernel
+// together with the jnp reduction of its per-block records (and the mask of
+// the padding words) in ops.compare_pattern.
+// Bound: bytes, the buffer read once; the pattern is a kernel argument.
+// Design: word i is expected to equal pattern[i % p].  The <= 4 pattern words
+// arrive by value as one uint4 (a pattern of 1 or 2 words repeated to 4, as
+// in fill_words), and p divides 4, so 16-byte group g expects that uint4
+// whole and the ragged tail word i expects its word i % 4.  Each thread stops
+// at its first mismatch and finish_first_diff reduces on the card.  The
+// buffer has no padding here, so only real words are ever compared.
+__global__ void compare_pattern_kernel(const uint32_t* __restrict__ a,
+                                       long long n, uint4 pat, bool vec,
+                                       unsigned* __restrict__ state,
+                                       bool* __restrict__ equal,
+                                       int32_t* __restrict__ first) {
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  unsigned mine = kNoDiff;
+  long long done = 0;
+  if (vec) {
+    const long long nv = n / 4;
+    const uint4* a4 = reinterpret_cast<const uint4*>(a);
+    for (long long i = tid; i < nv; i += stride) {
+      const unsigned m = diff_mask4(a4[i], pat);
+      if (m) {
+        mine = static_cast<unsigned>(4 * i) + (__ffs(m) - 1);
+        break;
+      }
+    }
+    done = nv * 4;
   }
-  __syncthreads();
-  if (last && threadIdx.x == 0) {
-    __threadfence();
-    const unsigned f = atomicAdd(&state[0], 0u);
-    *equal = f == kNoDiff;
-    *first = f == kNoDiff ? -1 : static_cast<int32_t>(f);
+  if (mine == kNoDiff) {
+    const uint32_t w[4] = {pat.x, pat.y, pat.z, pat.w};
+    for (long long i = done + tid; i < n; i += stride) {
+      if (a[i] != w[i & 3]) {
+        mine = static_cast<unsigned>(i);
+        break;
+      }
+    }
+  }
+  finish_first_diff(mine, state, equal, first);
+}
+
+// ------------------------------------------------------------------ fill_verify_words
+// Replaces kernels/fused.py fill_verify_words / _fill_verify_kernel together
+// with the jnp reduction of its per-block records in ops.fill_verify.
+// Bound: bytes, each word written once (the readback is the verify's own
+// cost, and the words it reads were just written, so they come from the L2).
+// Design: fill_words's uint4 stores, then each thread reads back what it
+// stored and compares it with the pattern; finish_first_diff reduces the
+// mismatches on the card, as compare_pattern_words does.  A plain load of an
+// address the thread has just stored to may be served from the register the
+// compiler still holds, which would turn the verify into a constant.  The
+// readback is therefore an ld.volatile.global in inline PTX with a "memory"
+// clobber: the compiler must issue it after the store and may neither drop it
+// nor forward the stored value, so the word comes from the memory system.
+// (A readback of another thread's words after __syncthreads would need a
+// second pass over a CTA-sized tile; the volatile load keeps one loop.)
+// Each thread stores kVerifyUnroll groups before it reads them back, so four
+// loads are in flight at once instead of one round trip per store.  A thread
+// that has found a mismatch goes on filling and stops checking.
+constexpr int kVerifyUnroll = 4;
+
+__device__ inline uint4 load_volatile(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ inline uint32_t load_volatile(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.volatile.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__global__ void fill_verify_kernel(uint32_t* __restrict__ dst, long long n,
+                                   uint4 pat, bool vec,
+                                   unsigned* __restrict__ state,
+                                   bool* __restrict__ equal,
+                                   int32_t* __restrict__ first) {
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  unsigned mine = kNoDiff;
+  long long done = 0;
+  if (vec) {
+    const long long nv = n / 4;
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (long long i0 = tid; i0 < nv; i0 += kVerifyUnroll * stride) {
+#pragma unroll
+      for (int k = 0; k < kVerifyUnroll; ++k) {
+        const long long i = i0 + k * stride;
+        if (i < nv) d4[i] = pat;
+      }
+#pragma unroll
+      for (int k = 0; k < kVerifyUnroll; ++k) {
+        const long long i = i0 + k * stride;
+        if (i < nv && mine == kNoDiff) {
+          const unsigned m = diff_mask4(load_volatile(d4 + i), pat);
+          if (m) mine = static_cast<unsigned>(4 * i) + (__ffs(m) - 1);
+        }
+      }
+    }
+    done = nv * 4;
+  }
+  const uint32_t w[4] = {pat.x, pat.y, pat.z, pat.w};
+  for (long long i = done + tid; i < n; i += stride) {
+    dst[i] = w[i & 3];
+    if (mine == kNoDiff && load_volatile(dst + i) != w[i & 3])
+      mine = static_cast<unsigned>(i);
+  }
+  finish_first_diff(mine, state, equal, first);
+}
+
+// ------------------------------------------------------------------ dualcast_words
+// Replaces kernels/dualcast.py dualcast_words / _dualcast_kernel.
+// Bound: bytes, the source read once and two destinations written once each
+// (3 x the buffer).
+// Design: one grid-stride pass; each 16-byte group is loaded once into
+// registers and stored to both destinations; a scalar loop takes the ragged
+// tail (and the whole buffer when a pointer is not 16-byte aligned).  The
+// JAX kernel has no PE spans, so neither has this one.
+__global__ void dualcast_words_kernel(const uint32_t* __restrict__ src,
+                                      uint32_t* __restrict__ d1,
+                                      uint32_t* __restrict__ d2, long long n,
+                                      bool vec) {
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long done = 0;
+  if (vec) {
+    const long long nv = n / 4;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* a4 = reinterpret_cast<uint4*>(d1);
+    uint4* b4 = reinterpret_cast<uint4*>(d2);
+    for (long long i = tid; i < nv; i += stride) {
+      const uint4 v = s4[i];
+      a4[i] = v;
+      b4[i] = v;
+    }
+    done = nv * 4;
+  }
+  for (long long i = done + tid; i < n; i += stride) {
+    const uint32_t v = src[i];
+    d1[i] = v;
+    d2[i] = v;
   }
 }
 
@@ -275,12 +443,9 @@ __device__ inline unsigned diff_nibble(const uint32_t* __restrict__ s,
                                        const uint32_t* __restrict__ r,
                                        long long g, long long n, bool vec) {
   const long long w = 4 * g;
-  if (vec && w + 4 <= n) {
-    const uint4 x = reinterpret_cast<const uint4*>(s)[g];
-    const uint4 y = reinterpret_cast<const uint4*>(r)[g];
-    return (x.x != y.x) | (x.y != y.y) << 1 | (x.z != y.z) << 2 |
-           (x.w != y.w) << 3;
-  }
+  if (vec && w + 4 <= n)
+    return diff_mask4(reinterpret_cast<const uint4*>(s)[g],
+                      reinterpret_cast<const uint4*>(r)[g]);
   unsigned m = 0;
   for (int k = 0; k < 4; ++k)
     if (w + k < n && s[w + k] != r[w + k]) m |= 1u << k;
@@ -477,6 +642,13 @@ void launch_memcpy(const void* src, void* dst, long long n_words, int n_pe,
       span, vec);
 }
 
+// Sets the scratch of finish_first_diff to {kNoDiff, 0} on the stream.
+cudaError_t reset_first_diff(unsigned* state, cudaStream_t s) {
+  cudaError_t err = cudaMemsetAsync(state, 0xFF, sizeof(unsigned), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(state + 1, 0, sizeof(unsigned), s);
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -551,8 +723,7 @@ int dsa_compare_words(const void* a, const void* b, long long n_words,
                       void* state, void* equal, void* first, void* stream) {
   cudaStream_t s = as_stream(stream);
   unsigned* st = static_cast<unsigned*>(state);
-  cudaError_t err = cudaMemsetAsync(st, 0xFF, sizeof(unsigned), s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(st + 1, 0, sizeof(unsigned), s);
+  const cudaError_t err = reset_first_diff(st, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = aligned16(a) && aligned16(b);
   compare_words_kernel<<<grid_for((n_words + 3) / 4, kCopyThreads),
@@ -560,6 +731,49 @@ int dsa_compare_words(const void* a, const void* b, long long n_words,
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       n_words, vec, st, static_cast<bool*>(equal),
       static_cast<int32_t*>(first));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// state: 2 uint32 of scratch; equal: 1 bool; first: 1 int32 (all on the card)
+int dsa_compare_pattern_words(const void* a, long long n_words, unsigned p0,
+                              unsigned p1, unsigned p2, unsigned p3,
+                              void* state, void* equal, void* first,
+                              void* stream) {
+  cudaStream_t s = as_stream(stream);
+  unsigned* st = static_cast<unsigned*>(state);
+  const cudaError_t err = reset_first_diff(st, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  compare_pattern_kernel<<<grid_for((n_words + 3) / 4, kCopyThreads),
+                           kCopyThreads, 0, s>>>(
+      static_cast<const uint32_t*>(a), n_words, make_uint4(p0, p1, p2, p3),
+      aligned16(a), st, static_cast<bool*>(equal),
+      static_cast<int32_t*>(first));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dst: n_words (written whole); state, equal, first as for compare
+int dsa_fill_verify_words(void* dst, long long n_words, unsigned p0,
+                          unsigned p1, unsigned p2, unsigned p3, void* state,
+                          void* equal, void* first, void* stream) {
+  cudaStream_t s = as_stream(stream);
+  unsigned* st = static_cast<unsigned*>(state);
+  const cudaError_t err = reset_first_diff(st, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fill_verify_kernel<<<grid_for((n_words + 3) / 4, kCopyThreads),
+                       kCopyThreads, 0, s>>>(
+      static_cast<uint32_t*>(dst), n_words, make_uint4(p0, p1, p2, p3),
+      aligned16(dst), st, static_cast<bool*>(equal),
+      static_cast<int32_t*>(first));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dsa_dualcast_words(const void* src, void* d1, void* d2, long long n_words,
+                       void* stream) {
+  const bool vec = aligned16(src) && aligned16(d1) && aligned16(d2);
+  dualcast_words_kernel<<<grid_for((n_words + 3) / 4, kCopyThreads),
+                          kCopyThreads, 0, as_stream(stream)>>>(
+      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(d1),
+      static_cast<uint32_t*>(d2), n_words, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,6 +46,12 @@ def pattern_words(pattern) -> tuple:
     return tuple(int(w) & 0xFFFFFFFF for w in words)
 
 
+def pattern_quad(pat: tuple) -> tuple:
+    """A pattern of 1, 2 or 4 words repeated to the 4 words of the kernels'
+    ``uint4`` argument (p divides 4, so word i of a buffer is word i % 4)."""
+    return pat * (4 // len(pat))
+
+
 def fill_words(n_words: int, pattern: Sequence[int], *, n_pe: int = 1,
                device="cuda") -> torch.Tensor:
     """A new [n_words] uint32 buffer on ``device`` with word i equal to
@@ -63,8 +69,7 @@ def fill_words(n_words: int, pattern: Sequence[int], *, n_pe: int = 1,
                          f"runs on CUDA, the plain version on the CPU")
     dst = torch.empty(n_words, dtype=torch.uint32, device=device)
     if n_words:
-        quad = (pat * (4 // len(pat)))
-        _build.launch("dsa_fill_words", dst.data_ptr(), n_words, n_pe, *quad,
+        _build.launch("dsa_fill_words", dst.data_ptr(), n_words, n_pe, *pattern_quad(pat),
                       _build.stream(dst))
         _build.count(fill_words)
     return dst

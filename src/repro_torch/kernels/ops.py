@@ -5,9 +5,11 @@ shift-matrix choices of the CRC, and the device: every wrapper below runs
 the CUDA kernels for CUDA tensors and their plain versions for CPU tensors
 (there is no global backend switch and no fallback from one to the other).
 
-Every function has a bit-exact oracle in ref.py.  ``compare`` and
-``delta_create`` read nothing back to the host on CUDA tensors: their
-results stay on the card until the caller reads them.
+Every function has a bit-exact oracle in ref.py.  ``compare``,
+``compare_pattern``, ``fill_verify`` and ``delta_create`` read nothing back
+to the host on CUDA tensors: their results stay on the card until the
+caller reads them.  The word view has no padding, so the JAX package's mask
+of padding words (only real words count) holds here by construction.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.kernels import compare as _cmp
 from repro_torch.kernels import crc32 as _crc
 from repro_torch.kernels import delta_apply as _da
 from repro_torch.kernels import delta_create as _dc
+from repro_torch.kernels import dualcast as _dual
 from repro_torch.kernels import fill as _fill
 from repro_torch.kernels import fused as _fused
 from repro_torch.kernels import memcpy as _mc
@@ -81,13 +84,19 @@ def memcpy(x: torch.Tensor, *, n_pe: int = 1) -> torch.Tensor:
     return from_words(out, flat.shape[0], tuple(x.shape), x.dtype)
 
 
+def _buffer_device(pattern, device):
+    """Where a filled buffer goes: ``device``, else the pattern tensor's
+    device, else CUDA."""
+    if device is not None:
+        return device
+    return pattern.device if isinstance(pattern, torch.Tensor) else "cuda"
+
+
 def fill(pattern, n_words: int, *, n_pe: int = 1, device=None) -> torch.Tensor:
     """Fill ``n_words`` uint32 words with a repeating 1/2/4-word pattern.
     ``pattern`` is an immediate (ints, or a tensor read once); the buffer
     goes on ``device``: by default the pattern tensor's device, else CUDA."""
-    if device is None:
-        device = pattern.device if isinstance(pattern, torch.Tensor) else "cuda"
-    return _fill.fill_words(n_words, pattern, n_pe=n_pe, device=device)
+    return _fill.fill_words(n_words, pattern, n_pe=n_pe, device=_buffer_device(pattern, device))
 
 
 def fill_like(x: torch.Tensor, pattern_words=(0,), **kw) -> torch.Tensor:
@@ -103,6 +112,31 @@ def compare(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     """(equal?, first-diff word index | -1), DSA completion-record style:
     a 0-d bool and a 0-d int32 on the operands' device."""
     return _cmp.compare_words(_bitcast_to_u32(a), _bitcast_to_u32(b))
+
+
+def compare_pattern(a: torch.Tensor, pattern) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(equal?, first word index that differs from the repeating 1/2/4-word
+    ``pattern`` | -1) over ``a``'s word view, as ``compare`` returns it."""
+    return _cmp.compare_pattern_words(_bitcast_to_u32(a), pattern)
+
+
+def dualcast(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two copies of ``x`` (its shape and dtype) from one read of it."""
+    flat = _bitcast_to_u32(x)
+    d1, d2 = _dual.dualcast_words(flat)
+    n, shape = flat.shape[0], tuple(x.shape)
+    return from_words(d1, n, shape, x.dtype), from_words(d2, n, shape, x.dtype)
+
+
+def fill_verify(pattern, n_words: int, *, device=None):
+    """Fused fill + compare_pattern in ONE kernel launch: returns
+    ``(filled, (ok, first_bad_idx))`` where ``filled`` is bit-identical to
+    ``fill(pattern, n_words)`` and the pair matches
+    ``compare_pattern(filled, pattern)``, computed in-kernel from the words
+    just written.  ``device`` as for ``fill``."""
+    filled, ok, first = _fused.fill_verify_words(n_words, pattern,
+                                                 device=_buffer_device(pattern, device))
+    return filled, (ok, first)
 
 
 def delta_create(src: torch.Tensor, ref: torch.Tensor, *, cap: int = 1024):

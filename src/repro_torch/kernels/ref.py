@@ -111,7 +111,7 @@ def batch_copy_ref(src_pool: torch.Tensor, dst_pool: torch.Tensor,
     return out
 
 
-# --------------------------------------------------------------------------- slice 2: fill, compare, delta, DIF
+# --------------------------------------------------------------------------- fill, compare, dualcast, delta, DIF
 def _i32(x: torch.Tensor) -> torch.Tensor:
     """The same bits as int32: PyTorch on the CPU has no ``<``, ``scatter``
     or ``index_put`` for uint32."""
@@ -151,6 +151,22 @@ def compare_ref(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     any_diff = diff.any()
     first = torch.argmax(diff.to(torch.uint8)).to(torch.int32)
     return ~any_diff, torch.where(any_diff, first, torch.full_like(first, -1))
+
+
+def compare_pattern_ref(a: torch.Tensor, pattern_words: Sequence[int]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(equal?, first word index or -1) of ``a``'s word view against the
+    pattern repeated over it (word i against ``pattern_words[i % p]``), as
+    ``compare_ref`` returns it.  Also the plain version of
+    ``compare.compare_pattern_words``."""
+    expect = fill_ref((_i32(a).numel(),), pattern_words, device=a.device)
+    return compare_ref(a, expect)
+
+
+def dualcast_ref(src: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two copies of ``src``.  Also the plain version of
+    ``dualcast.dualcast_words``."""
+    return src.clone(), src.clone()
 
 
 def delta_create_ref(src: torch.Tensor, ref: torch.Tensor, cap: int):

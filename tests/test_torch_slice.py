@@ -23,7 +23,6 @@ import repro.kernels.ops as jops
 import repro_torch.core as T
 from repro.core.telemetry import Telemetry as JTelemetry
 from repro_torch.analysis import lockcheck as tlock
-from repro_torch.core.engine import UNPORTED_OPS
 
 
 def tt(a: np.ndarray) -> torch.Tensor:
@@ -218,8 +217,11 @@ def test_batch_fusion_rule(monkeypatch):
     assert len(calls) == 1
 
 
-@pytest.mark.parametrize("op", UNPORTED_OPS, ids=lambda o: o.value)
+@pytest.mark.parametrize("op", [T.OpType.FILL_VERIFY, T.OpType.COMPARE_PATTERN,
+                                T.OpType.DUALCAST], ids=lambda o: o.value)
 def test_unported_op_resolves_error(op):
+    """The three ops that earlier slices of the port refused (resolving
+    Status.ERROR) now run: SUCCESS, no error text, the right result."""
     device = T.make_device(device="cpu")
     words = torch.arange(256, dtype=torch.int32)
     pat = torch.tensor([7], dtype=torch.int32)
@@ -230,10 +232,15 @@ def test_unported_op_resolves_error(op):
     }[op]
     fut = device.submit(T.WorkDescriptor(op=op, **operands))
     device.drain()
-    assert fut.status == T.Status.ERROR
-    assert "NotImplementedError" in fut.error and "not ported" in fut.error
-    with pytest.raises(RuntimeError):
-        fut.result()
+    assert fut.status == T.Status.SUCCESS and fut.error is None
+    out = fut.result()
+    if op == T.OpType.FILL_VERIFY:
+        filled, (ok, first) = out
+        assert filled.view(torch.int32).tolist() == [7] * 64 and bool(ok) and int(first) == -1
+    elif op == T.OpType.COMPARE_PATTERN:
+        assert not bool(out[0]) and int(out[1]) == 0  # word 0 is 0, not 7
+    else:
+        assert all(torch.equal(o, words) for o in out)
     assert device.policy_stats["desclint_warnings"] == 0
 
 
