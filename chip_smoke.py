@@ -46,9 +46,29 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      fp32 AdamW moments and an int32 step, cut to 2 of its 22 decoder
      layers (219 M parameters, 2.19 GB a save), and dualcast,
      compare-pattern and fill-verify of 4 KiB .. 1 GiB through the device;
-  5. each kernel's time at the phase 4 / 4b / 4c shapes beside its bound,
-     its plain version's time and, where one PyTorch call computes the same
-     function, that call's time; the save and restore seconds of phase 4c;
+  2d. the flash-attention kernel against its plain version: head dims 32,
+     64, 128 and 256, GQA groups of 1, 2 and 8, causal and not, a window
+     with and without a meta prefix, Sq = Skv of 1, 77, 1000 and 2048, a
+     windowed Sq > Skv case with rows that see no key, bf16 and f32;
+  3d. the slice-4 main path at a small size: tinyllama-1.1b.reduced() in f32
+     served (6 requests of 16-77 tokens, 4 new tokens each) by the
+     ``VhostStyleServer`` with ``attn_impl="flash"`` on the card, and with the
+     same weights on the CPU: the same tokens, prefill logits within 1e-4;
+     a ``PagedKVPool`` on the card reserves the prompts' pages and swaps a
+     sequence out and back (bit for bit, no synchronous fallback);
+  4d. the same at full width and depth: tinyllama-1.1b (22 layers, bf16,
+     2.2 GB of weights), 4 slots, 8 requests of 2048 .. 77 tokens, 16 new
+     tokens each: every request completes, 22 x 8 flash launches, the prompt
+     copies through memcpy_words and batch_copy_pages; the 2048-token
+     prefill's logits under "flash" against "chunked" (plain PyTorch): with
+     the weights in f32 within 1e-4, in bf16 within twice the bf16 rounding
+     noise measured in the run (chunked bf16 against chunked f32); time to
+     first token per prompt, decode tokens/s, seconds;
+  5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
+     bound, its plain version's time and, where one PyTorch call computes
+     the same function, that call's time (for flash attention
+     ``scaled_dot_product_attention``); the save and restore seconds of
+     phase 4c;
   6. the launch counts of each slice's main path, set to 0 just before it
      and read just after: every kernel of the path must have launched.
 
@@ -58,6 +78,7 @@ no result, where ``torch.cuda.is_available()`` is false.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -82,10 +103,14 @@ H100_SXM_MEM_BPS = 3.35e12
 #: 32-bit operations outside the tensor cores (the data sheet's float32
 #: rate of an H100 SXM); the CRC's table lookups and xors are counted here
 H100_SXM_OPS = 67e12
+#: dense bf16 tensor-core rate of an H100 SXM (the data sheet): the bound of
+#: attention's matmuls
+H100_SXM_BF16_OPS = 989e12
 #: integer operations of one slice-by-4 CRC step: xor, 3 shifts, 4 masks,
 #: 4 table reads, 3 xors of the lookups
 CRC_OPS_PER_WORD = 15
 SOURCE = "src/repro_torch/kernels/csrc/dsa_kernels.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: bytes read between two timed calls, to push the last call's data out of
 #: the 50 MB L2 (read, not written, so no dirty lines are left to evict)
 FLUSH_BYTES = 256 * MiB
@@ -97,6 +122,29 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 TINYLLAMA = dict(d_model=2048, n_heads=32, n_kv_heads=4, head_dim=64, d_ff=5632,
                  vocab=32000, n_layers=22)
 TINYLLAMA_LAYERS_KEPT = 2
+#: phase 4d's prompts: tinyllama's whole 2048-token context, then shorter
+#: ones; 1000, 333 and 77 leave the kernel's last 32-row tile partial and do
+#: not split into equal prompt chunks
+FULL_PROMPTS = (2048, 1536, 1024, 1000, 512, 512, 333, 77)
+FULL_SLOTS, FULL_CACHE, FULL_NEW = 4, 2064, 16
+#: flash attention against its plain version: f32 is the same f32 sums in
+#: another order; bf16 outputs within 2 bf16 ulps (2^-7 relative, plus p
+#: rounded to bf16 relative to another running max)
+FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+             torch.bfloat16: dict(atol=1.6e-2, rtol=1.6e-2)}
+#: phase 3d, the f32 model on the card against the CPU, and phase 4d's f32
+#: prefill under "flash" against "chunked": the same f32 arithmetic with sums
+#: in other orders (cuBLAS and the CPU; the kernel's 32-key tiles and the
+#: plain version's 512-key blocks) through 4 or 22 layers
+SERVE_F32_TOL = dict(atol=1e-4, rtol=1e-4)
+#: phase 4d in bf16: every matmul, norm and add of 22 layers rounds to bf16
+#: (2^-8), which alone moves the logits of this random model by about 0.06
+#: from the f32 model's (the noise, measured in the run as chunked bf16
+#: against chunked f32).  Flash against chunked in bf16 must stay within
+#: twice that noise, and flash's distance from the f32 model within 1.5
+#: times chunked's.
+BF16_NOISE_FACTOR = 2.0
+BF16_FROM_F32_FACTOR = 1.5
 
 
 class SmokeError(AssertionError):
@@ -168,12 +216,15 @@ SLICE2 = ("fill_words", "compare_words", "delta_record_words", "delta_apply_word
 #: offload's copies and the checkpoint's kernel CRC (copy+CRC and its fold)
 SLICE3 = ("dualcast_words", "compare_pattern_words", "fill_verify_words", "memcpy_words",
           "copy_crc_words", "gf2_fold")
+#: slice 4 (phases 3d and 4d): serving: flash attention in every prefill, the
+#: prompt copies (memcpy, and batch copy where the chunks are equal and fuse)
+SLICE4 = ("flash_attention", "memcpy_words", "batch_copy_pages")
 
 
 def kernel_table():
     """name -> (wrapper with its ``launches`` count, file:line replaced)."""
     from repro_torch.kernels import (batch_copy, compare, crc32, delta_apply, delta_create,
-                                     dualcast, fill, fused, memcpy)
+                                     dualcast, fill, flash_attention, fused, memcpy)
 
     return {
         "memcpy_words": (memcpy.memcpy_words, "src/repro/kernels/memcpy.py:20"),
@@ -193,6 +244,8 @@ def kernel_table():
                                   "src/repro/kernels/compare.py:61"),
         "dualcast_words": (dualcast.dualcast_words, "src/repro/kernels/dualcast.py:22"),
         "fill_verify_words": (fused.fill_verify_words, "src/repro/kernels/fused.py:106"),
+        "flash_attention": (flash_attention.flash_attention,
+                            "src/repro/kernels/flash_attention.py:72"),
     }
 
 
@@ -1016,6 +1069,256 @@ def real_sizes_3(dev, gen, sizes=(4 * KiB, MiB, 64 * MiB, GiB)) -> dict:
     return dict(secs, params=n_params, tree_bytes=n_bytes)
 
 
+# --------------------------------------------------------------------------- phase 2d
+#: B, Sq, Skv, H, KV, hd, causal, window, n_meta, dtype
+FLASH_CASES = (
+    (1, 1, 1, 8, 4, 32, True, 0, 0, torch.float32),
+    (2, 77, 77, 8, 8, 64, True, 0, 0, torch.bfloat16),
+    (1, 77, 77, 8, 1, 128, False, 0, 0, torch.float32),
+    (1, 77, 77, 4, 2, 32, True, 16, 4, torch.bfloat16),
+    (1, 1000, 1000, 16, 2, 64, True, 0, 0, torch.bfloat16),
+    (1, 1000, 1000, 4, 2, 256, True, 128, 0, torch.float32),
+    (1, 2048, 2048, 32, 4, 64, True, 0, 0, torch.bfloat16),
+    (1, 2048, 2048, 8, 4, 128, True, 512, 16, torch.bfloat16),
+    (1, 2048, 2048, 4, 4, 256, False, 0, 0, torch.bfloat16),
+    (1, 2048, 2048, 4, 1, 32, True, 0, 0, torch.float32),
+    (1, 300, 100, 4, 2, 64, True, 32, 0, torch.float32),
+    (1, 300, 100, 4, 2, 64, False, 32, 0, torch.bfloat16),
+)
+
+
+def flash_inputs(gen, dev, B, Sq, Skv, H, KV, hd, dtype):
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return normal(B, Sq, H, hd), normal(B, Skv, KV, hd), normal(B, Skv, KV, hd)
+
+
+@phase("2d flash attention against its plain version")
+def kernels_vs_plain_4(dev, gen, errs: dict) -> None:
+    from repro_torch.kernels import flash_attention as fa
+
+    worst = 0.0
+    for B, Sq, Skv, H, KV, hd, causal, window, n_meta, dtype in FLASH_CASES:
+        q, k, v = flash_inputs(gen, dev, B, Sq, Skv, H, KV, hd, dtype)
+        kw = dict(causal=causal, window=window, n_meta=n_meta)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        sync(dev)
+        what = (f"flash_attention B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} hd={hd} "
+                f"causal={causal} window={window} n_meta={n_meta} {dtype}")
+        check(got.dtype == dtype and got.shape == q.shape, f"{what}: {got.dtype} {got.shape}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        ok = torch.allclose(got.float(), want.float(), **FLASH_TOL[dtype])
+        print(f"  {what}: max |err| {err:.3e}")
+        check(ok, f"{what}: kernel disagrees with its plain version (max err {err})")
+    errs["flash_attention"] = worst
+
+
+# --------------------------------------------------------------------------- phases 3d and 4d
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve(model, params, device, prompts, *, slots, max_cache, max_new, max_steps=2000,
+          wrap_decode=None, kv_pool=None):
+    """Serve ``prompts`` through a VhostStyleServer; every request must
+    complete with ``max_new`` tokens.  ``wrap_decode`` wraps the server's
+    decode step.  Returns (requests, server, seconds)."""
+    from repro_torch.serving.pipeline import Request, VhostStyleServer
+
+    server = VhostStyleServer(model, params, slots=slots, max_cache_len=max_cache,
+                              device=device, kv_pool=kv_pool)
+    if wrap_decode is not None:
+        server._decode = wrap_decode(server._decode)
+    t0 = time.perf_counter()
+    reqs = [Request(req_id=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        server.enqueue(r)
+    steps = server.run_until_drained(max_steps=max_steps)
+    sync(model.device)
+    secs = time.perf_counter() - t0
+    m = server.metrics
+    check(m["completed"] == len(reqs) and all(len(r.output) == max_new for r in reqs),
+          f"served {m['completed']} of {len(reqs)} requests in {steps} steps")
+    check(all(0 <= t < model.cfg.vocab_size for r in reqs for t in r.output),
+          "a served token is outside the vocabulary")
+    return reqs, server, secs
+
+
+@phase("3d serving on the card and on the CPU (tinyllama-1.1b.reduced(), f32)")
+def serving_small(dev) -> dict:
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_device
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.kv_pool import PagedKVPool
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), dtype="float32")
+    card = build_model(cfg, remat=False, attn_impl="flash", device=dev)
+    params = card.init(torch.Generator(device=dev).manual_seed(1))
+    host_model = build_model(cfg, remat=False, attn_impl="flash", device="cpu")
+    host_params = ttree.tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (16, 77, 33, 50, 64, 21)]
+    kw = dict(slots=3, max_cache=96, max_new=4, max_steps=500)
+    device = make_device(n_instances=2, policy="least_loaded", device=dev)
+    # admission reserves each prompt's KV pages in a pool on the card
+    pool = PagedKVPool(n_device_pages=32, n_host_pages=16, page_tokens=16,
+                       kv_dim=2 * cfg.num_kv_heads * cfg.head_dim, dtype=torch.float32,
+                       device=device)
+    on_card, server, secs = serve(card, params, device, prompts, kv_pool=pool, **kw)
+    check(pool.stats.device_pages_used == 0 and not pool.page_table,
+          f"KV pages leaked: {pool.stats}")
+    kv_pool_round_trip(pool, gen=torch.Generator(device=dev).manual_seed(5))
+    on_cpu, _, cpu_secs = serve(host_model, host_params,
+                                make_device(n_instances=2, policy="least_loaded", device="cpu"),
+                                prompts, **kw)
+    check([r.output for r in on_card] == [r.output for r in on_cpu],
+          f"the card served other tokens than the CPU: {[r.output for r in on_card]} vs "
+          f"{[r.output for r in on_cpu]}")
+    toks = torch.from_numpy(prompts[1])[None]
+    _, lc, _ = card.prefill(params, {"tokens": toks.to(dev)}, 96)
+    _, lh, _ = host_model.prefill(host_params, {"tokens": toks}, 96)
+    err = float((lc.cpu() - lh).abs().max())
+    check(bool(torch.isfinite(lc).all()) and lc.shape == (1, cfg.vocab_size), "prefill logits")
+    check(torch.allclose(lc.cpu(), lh, **SERVE_F32_TOL),
+          f"prefill logits of the card and the CPU differ by {err}")
+    print(f"6 requests served on the card in {secs:.3f} s and on the CPU in {cpu_secs:.3f} s: "
+          f"the same {sum(len(r.output) for r in on_card)} tokens; 77-token prefill logits "
+          f"max |card - CPU| {err:.3e}; placements "
+          f"{dict(server.device.policy_stats['decisions'])}")
+    return {"card_s": secs, "cpu_s": cpu_secs, "logits_err": err}
+
+
+def kv_pool_round_trip(pool, gen) -> None:
+    """A sequence's KV pages out to the host tier and back, as batch copies
+    through the engines: the pages come back bit for bit, and no copy fell
+    back to the synchronous path."""
+    n = 5
+    check(pool.alloc(7, n), "no KV pages for the round trip")
+    pages = torch.randn((n, pool.page_tokens, pool.kv_dim), generator=gen, device=gen.device)
+    for i in range(n):
+        pool.write_page(7, i, pages[i])
+    check(pool.swap_out(7) and pool.swap_in(7), "the KV swap was refused")
+    check(same_bits(pool.read_pages(7), pages.to(pool.host_pool.dtype).reshape(-1, pool.kv_dim)),
+          "KV pages changed on their way to the host tier and back")
+    pool.free(7)
+    st = pool.stats
+    check(st.copy_fallbacks == 0 and st.swaps_out == st.swaps_in == 1 and st.pages_moved == 2 * n,
+          f"KV pool: {st}")
+    print(f"KV pool on the card: {n} pages out and back through batch copies, "
+          f"copy_fallbacks {st.copy_fallbacks}")
+
+
+@phase("4d serving tinyllama-1.1b at full width and depth (bf16, flash)")
+def serving_full(dev, cfg=None) -> dict:
+    """``cfg`` (default: tinyllama-1.1b) lets a CPU rehearsal run a reduced
+    config through the same steps."""
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_device
+    from repro_torch.models.api import build_model
+
+    cfg = cfg or get_config("tinyllama-1.1b")
+    model = build_model(cfg, remat=False, attn_impl="flash", device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    sync(dev)
+    n_params = sum(t.numel() for t in ttree.leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in ttree.leaves(params))
+    print(f"tinyllama-1.1b: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params} params, "
+          f"{n_bytes} B ({cfg.dtype}) made on the card in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in FULL_PROMPTS]
+    device = make_device(n_instances=2, policy="least_loaded", device=dev)
+    decode_s = [0.0, 0]
+
+    def timed(decode):
+        # host clock around each decode step, synchronised: the decode share
+        def run(*a):
+            t = time.perf_counter()
+            out = decode(*a)
+            sync(dev)
+            decode_s[0] += time.perf_counter() - t
+            decode_s[1] += 1
+            return out
+        return run
+
+    reset_counts()
+    reqs, server, secs = serve(model, params, device, prompts, slots=FULL_SLOTS,
+                               max_cache=FULL_CACHE, max_new=FULL_NEW, wrap_decode=timed)
+    counts = read_counts(SLICE4)
+    print(f"launches while serving: {counts}")
+    check(counts["flash_attention"] == cfg.num_layers * len(prompts),
+          f"flash_attention launched {counts['flash_attention']} times, not "
+          f"{cfg.num_layers} layers x {len(prompts)} prefills")
+    check(counts["memcpy_words"] > 0 and counts["batch_copy_pages"] > 0,
+          f"the prompt copies did not go through memcpy_words and batch_copy_pages: {counts}")
+    m = server.metrics
+    ttft = [(len(r.prompt), r.first_token_at - r.arrived_at) for r in reqs]
+    decoded = m["decoded_tokens"]
+    out = {"seconds": secs, "ttft_s": ttft, "decode_s": decode_s[0], "decode_steps": decode_s[1],
+           "decoded_tokens": decoded, "decode_tok_s": decoded / decode_s[0],
+           "steps": m["steps"], "copy_bursts": m["copy_bursts"], "launches": counts,
+           "params": n_params, "param_bytes": n_bytes}
+    print(f"served 8 requests in {secs:.3f} s ({m['steps']} steps, {m['copy_bursts']} copy "
+          f"bursts); {decoded} decoded tokens in {decode_s[1]} decode steps, "
+          f"{decode_s[0]:.3f} s ({decoded / decode_s[0]:.1f} tokens/s); time to first token "
+          f"by prompt length: " + ", ".join(f"{n}: {t:.3f} s" for n, t in ttft))
+    out.update(flash_vs_chunked(model, params, prompts[0], dev))
+    return out
+
+
+def flash_vs_chunked(model, params, prompt, dev) -> dict:
+    """One prompt's prefill logits under "flash" and "chunked" (plain
+    PyTorch), with the model's bf16 weights and with the same weights in
+    f32."""
+    from repro_torch import tree as ttree
+    from repro_torch.models.api import build_model
+
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    p32 = ttree.tree_map(lambda t: t.float(), params)
+    toks = torch.from_numpy(prompt)[None].to(dev)
+    logits = {}
+    for kind, cfg, p in (("bf16", model.cfg, params), ("f32", cfg32, p32)):
+        for impl in ("flash", "chunked"):
+            m = build_model(cfg, remat=False, attn_impl=impl, device=dev)
+            _, logits[kind, impl], _ = m.prefill(p, {"tokens": toks}, FULL_CACHE)
+    del p32
+    for key, lg in logits.items():
+        check(bool(torch.isfinite(lg).all()) and lg.shape == (1, model.cfg.vocab_size),
+              f"{key} prefill logits: not finite, or shape {tuple(lg.shape)}")
+
+    def gap(a, b):
+        return float((logits[a] - logits[b]).abs().max())
+
+    out = {"f32_flash_vs_chunked": gap(("f32", "flash"), ("f32", "chunked")),
+           "bf16_flash_vs_chunked": gap(("bf16", "flash"), ("bf16", "chunked")),
+           "bf16_noise": gap(("bf16", "chunked"), ("f32", "chunked")),
+           "bf16_flash_vs_f32": gap(("bf16", "flash"), ("f32", "chunked")),
+           "logits_absmax": float(logits["f32", "chunked"].abs().max()),
+           "same_argmax": len({int(lg.argmax()) for lg in logits.values()}) == 1}
+    print(f"{len(prompt)}-token prefill logits (|logits| up to {out['logits_absmax']:.3f}): "
+          f"f32 flash vs chunked {out['f32_flash_vs_chunked']:.3e}; bf16 flash vs chunked "
+          f"{out['bf16_flash_vs_chunked']:.3e}, bf16 noise (chunked bf16 vs f32) "
+          f"{out['bf16_noise']:.3e}, flash bf16 vs f32 {out['bf16_flash_vs_f32']:.3e}; "
+          f"one argmax: {out['same_argmax']}")
+    check(torch.allclose(logits["f32", "flash"], logits["f32", "chunked"], **SERVE_F32_TOL),
+          f"f32 prefill logits: flash and chunked differ by {out['f32_flash_vs_chunked']}")
+    check(out["bf16_flash_vs_chunked"] <= BF16_NOISE_FACTOR * out["bf16_noise"],
+          f"bf16 prefill logits: flash and chunked differ by {out['bf16_flash_vs_chunked']}, "
+          f"more than {BF16_NOISE_FACTOR} x the bf16 noise {out['bf16_noise']}")
+    check(out["bf16_flash_vs_f32"] <= BF16_FROM_F32_FACTOR * out["bf16_noise"],
+          f"bf16 flash is {out['bf16_flash_vs_f32']} from the f32 model, more than "
+          f"{BF16_FROM_F32_FACTOR} x chunked's {out['bf16_noise']}")
+    return out
+
+
 # --------------------------------------------------------------------------- phase 5
 def cold_ms(fn, reps: int, flush: torch.Tensor) -> float:
     """Median device time of one call of ``fn`` with the L2 flushed before
@@ -1274,6 +1577,51 @@ def times_3(dev, gen, big: int = GiB) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------- phase 5d
+@phase("5d flash attention times")
+def times_4(dev, gen) -> list:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev).zero_()
+    B, S, H, KV, hd = 1, 2048, 32, 4, 64
+    q, k, v = flash_inputs(gen, dev, B, S, S, H, KV, hd, torch.bfloat16)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    try:
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                     enable_gqa=True)
+        lib()
+        call = "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) on [B,H,S,hd] views"
+    except TypeError:  # a torch without enable_gqa: the KV heads expanded first
+        ke, ve = kt.repeat_interleave(H // KV, 1), vt.repeat_interleave(H // KV, 1)
+        lib = lambda: F.scaled_dot_product_attention(qt, ke, ve, is_causal=True)  # noqa: E731
+        call = "F.scaled_dot_product_attention(is_causal=True) on KV heads expanded beforehand"
+    sdpa_err = float((lib().transpose(1, 2).float() - fa.flash_attention(q, k, v).float())
+                     .abs().max())
+    pairs = B * S * (S + 1) // 2  # visible (query, key) pairs of a causal mask
+    flops = 4 * H * hd * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops = flops / H100_SXM_BF16_OPS * 1e3
+    t_bytes = nbytes / mem_bps() * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    shape = f"q [{B}, {S}, {H}, {hd}], k/v [{B}, {S}, {KV}, {hd}] bf16, causal"
+    row = {"name": "flash_attention", "shape": shape,
+           "ms": cold_ms(lambda: fa.flash_attention(q, k, v), 20, flush),
+           "plain_ms": cold_ms(lambda: fa.flash_attention_plain(q, k, v), 5, flush),
+           "plain_shape": shape, "library_ms": cold_ms(lib, 20, flush), "library_call": call,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"flash_attention {shape}: {row['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops} FLOP at {H100_SXM_BF16_OPS:.3g}/s, {nbytes} B at {mem_bps():.3g} B/s), "
+          f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms ({call}); "
+          f"max |kernel - library| {sdpa_err:.3e}")
+    for n in FULL_PROMPTS[1:]:
+        qs, ks, vs = q[:, :n].contiguous(), k[:, :n].contiguous(), v[:, :n].contiguous()
+        print(f"  flash_attention at the {n}-token prefill (cold L2): "
+              f"{cold_ms(lambda: fa.flash_attention(qs, ks, vs), 20, flush):.4f} ms")
+    return [row]
+
+
 # --------------------------------------------------------------------------- main
 def main() -> int:
     try:
@@ -1295,11 +1643,15 @@ def run() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    # float32 matmuls in full f32 (no TF32), stated and set
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     build()
     errs: dict = {}
     kernels_vs_plain(dev, gen, errs)
     kernels_vs_plain_2(dev, gen, errs)
     kernels_vs_plain_3(dev, gen, errs)
+    kernels_vs_plain_4(dev, gen, errs)
     # each slice's main path, with the counts set to 0 just before it and
     # read just after it
     reset_counts()
@@ -1326,21 +1678,36 @@ def run() -> int:
     print(f"launches on the slice-3 main path (phases 3c and 4c): {counts3}")
     check(all(v > 0 for v in counts3.values()),
           f"a kernel of the slice-3 main path never launched: {counts3}")
+    reset_counts()
+    small = serving_small(dev)
+    torch.cuda.synchronize()
+    counts_3d = read_counts(SLICE4)
+    print(f"launches on the slice-4 main path at the small size (phase 3d): {counts_3d}")
+    check(all(v > 0 for v in counts_3d.values()),
+          f"a kernel of the slice-4 main path never launched in phase 3d: {counts_3d}")
+    full = serving_full(dev)  # sets the counts to 0 itself, reads them after serving
+    counts4 = full["launches"]
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     rows = {r["name"]: r for r in times(dev, gen, shapes["pool"])}
     del shapes
     rows.update({r["name"]: r for r in times_2(dev, gen, shapes2)})
     del shapes2
     rows.update({r["name"]: r for r in times_3(dev, gen)})
+    rows.update({r["name"]: r for r in times_4(dev, gen)})
     print("checkpoint of tinyllama-1.1b (2 of 22 layers), seconds: " + json.dumps(ckpt))
+    print("serving, tinyllama-1.1b.reduced() f32 (phase 3d): " + json.dumps(small))
+    print("serving, tinyllama-1.1b full width and depth (phase 4d): "
+          + json.dumps({k: v for k, v in full.items() if k != "launches"}))
     table = kernel_table()
     kernels = []
     for name, (_, replaces) in table.items():
         r = rows[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "name": name, "route": "cuda",
+            "source": FLASH_SOURCE if name == "flash_attention" else SOURCE,
+            "replaces": replaces,
             "launches": (counts[name] if name in SLICE1 else counts2[name] if name in SLICE2
-                         else counts3[name]),
+                         else counts3[name] if name in SLICE3 else counts4[name]),
             "max_abs_err": errs.get(name, 0),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

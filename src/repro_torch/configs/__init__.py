@@ -1,0 +1,35 @@
+from repro_torch.configs.base import (
+    EncoderConfig,
+    HybridConfig,
+    ModelConfig,
+    MoEConfig,
+    SHAPES,
+    SHAPES_BY_NAME,
+    ShapeConfig,
+    SSMConfig,
+    VLMConfig,
+)
+from repro_torch.configs.registry import (
+    ARCH_IDS,
+    all_cells,
+    applicable,
+    get_config,
+    runnable_cells,
+)
+
+__all__ = [
+    "ARCH_IDS",
+    "EncoderConfig",
+    "HybridConfig",
+    "ModelConfig",
+    "MoEConfig",
+    "SHAPES",
+    "SHAPES_BY_NAME",
+    "ShapeConfig",
+    "SSMConfig",
+    "VLMConfig",
+    "all_cells",
+    "applicable",
+    "get_config",
+    "runnable_cells",
+]

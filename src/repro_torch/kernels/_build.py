@@ -1,11 +1,12 @@
-"""Build, load and call the hand-written CUDA kernels (csrc/dsa_kernels.cu).
+"""Build, load and call the hand-written CUDA kernels (csrc/*.cu).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, under ``build/repro_torch/`` at the repository
-root, at first use, and loaded with ``ctypes``.  The library's file name
-carries a hash of the source and the flags, so an edited source rebuilds and
-a built one is reused.  Nothing here runs at import time: the CPU tests
-import every module of the package on a host with no ``nvcc``.
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object file,
+all of them at once, in parallel, and the objects are linked into one shared
+library with a plain C interface, under ``build/repro_torch/`` at the
+repository root, at first use, and loaded with ``ctypes``.  The library's
+file name carries a hash of the sources and the flags, so an edited source
+rebuilds and a built one is reused.  Nothing here runs at import time: the
+CPU tests import every module of the package on a host with no ``nvcc``.
 
 Every pointer and the stream go to C as ``ctypes.c_void_p``; each C entry
 returns ``cudaGetLastError()`` and :func:`launch` raises when it is not 0.
@@ -25,18 +26,19 @@ from typing import Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "dsa_kernels.cu",)
+SOURCES = (CSRC / "dsa_kernels.cu", CSRC / "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the CUDA toolkit's default install
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_F = ctypes.c_float
 _SIGNATURES = {
     "dsa_memcpy_words": (_P, _P, _LL, _I, _P),
     "dsa_batch_copy_pages": (_P, _P, _P, _P, _I, _LL, _LL, _LL, _P),
@@ -51,6 +53,8 @@ _SIGNATURES = {
     "dsa_delta_count": (_P, _P, _LL, _P, _P, _I, _P),
     "dsa_delta_write": (_P, _LL, _P, _P, _P, _I, _LL, _P, _P, _P, _P, _P),
     "dsa_delta_apply_words": (_P, _P, _LL, _P, _P, _LL, _P, _P),
+    "dsa_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "dsa_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -85,22 +89,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdsa_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}:\n"
+                               f"{' '.join(c)}\n{log}")
+    return "".join(logs)
+
+
 def _build() -> Path:
     global build_log, build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        # one nvcc for each source, all started together, then one link
+        build_log = _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                              for src, o in zip(SOURCES, objs)])
+        build_log += _run_all([[nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                *map(str, objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{build_log}")
+        raise
+    finally:
+        build_seconds = time.perf_counter() - t0
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
     return out
 

@@ -212,11 +212,11 @@ def test_cpu_tensors_take_the_plain_versions_of_the_slice3_kernels(monkeypatch):
     assert counts == [f.launches for f in wrappers]
 
 
-CU = (_build.CSRC / "dsa_kernels.cu").read_text()
+CU = "".join(src.read_text() for src in _build.SOURCES)
 
 
 def test_c_entry_points_match_their_ctypes_signatures():
-    """Each ``extern "C"`` entry of the CUDA source has a ctypes signature
+    """Each ``extern "C"`` entry of the CUDA sources has a ctypes signature
     with as many arguments (the card is the only place a mismatch would
     show otherwise)."""
     entries = dict(re.findall(r"^int (dsa_\w+)\(([^)]*)\)", CU, flags=re.M))
