@@ -7,8 +7,12 @@ kernels against its plain PyTorch version.
 Phases (any failure exits non-zero; no phase is caught and skipped):
 
   1. build the kernels from src/repro_torch/kernels/csrc/ and print the card;
+     the bf16 flash kernel's SASS must hold HGMMA (tensor-core) instructions
+     at every head dim;
   2. each slice-1 kernel against its plain version on the card, bit-exact, at
-     ragged word counts (a CRC with one chain among them), over float32,
+     ragged word counts (a CRC with one chain among them; copies from starts
+     of 0-3 words and one word either side of the bulk-copy ring's edges,
+     over 1, 3 and 4 PE spans), over float32,
      bfloat16, int8 and uint32, batches with duplicate destinations and
      untouched pages; CRC and copy+CRC also against zlib (sizes <= 1 MiB);
   2b. each slice-2 kernel the same way: fills with 1-, 2- and 4-word
@@ -46,10 +50,12 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      fp32 AdamW moments and an int32 step, cut to 2 of its 22 decoder
      layers (219 M parameters, 2.19 GB a save), and dualcast,
      compare-pattern and fill-verify of 4 KiB .. 1 GiB through the device;
-  2d. the flash-attention kernel against its plain version: head dims 32,
-     64, 128 and 256, GQA groups of 1, 2 and 8, causal and not, a window
-     with and without a meta prefix, Sq = Skv of 1, 77, 1000 and 2048, a
-     windowed Sq > Skv case with rows that see no key, bf16 and f32;
+  2d. the flash-attention kernels against their plain version: head dims
+     32, 64, 128 and 256 (each in bf16 with GQA groups of 1, 4 and 8),
+     causal and not, a window with and without a meta prefix, Sq = Skv of
+     1, 63, 64, 65, 77, 100, 129, 1000 and 2048 (the bf16 kernel's tile
+     edges), B = 2 with ragged lengths, windowed Sq > Skv cases with rows
+     that see no key or only the meta keys, bf16 and f32;
   3d. the slice-4 main path at a small size: tinyllama-1.1b.reduced() in f32
      served (6 requests of 16-77 tokens, 4 new tokens each) by the
      ``VhostStyleServer`` with ``attn_impl="flash"`` on the card, and with the
@@ -67,8 +73,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
   5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
-     ``scaled_dot_product_attention``); the save and restore seconds of
-     phase 4c;
+     ``scaled_dot_product_attention``, also at hd 128 and 256); the save
+     and restore seconds of phase 4c;
   6. the launch counts of each slice's main path, set to 0 just before it
      and read just after: every kernel of the path must have launched.
 
@@ -109,6 +115,11 @@ H100_SXM_BF16_OPS = 989e12
 #: integer operations of one slice-by-4 CRC step: xor, 3 shifts, 4 masks,
 #: 4 table reads, 3 xors of the lookups
 CRC_OPS_PER_WORD = 15
+#: memcpy_words' bulk ring (csrc/dsa_kernels.cu kCopyChunk, kCopyStages):
+#: spans of at least one full ring per SM go through it; phase 2 copies
+#: lengths one word either side of its edges
+COPY_CHUNK_WORDS = 32 * KiB // 4
+COPY_STAGES = 4
 SOURCE = "src/repro_torch/kernels/csrc/dsa_kernels.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: bytes read between two timed calls, to push the last call's data out of
@@ -123,7 +134,7 @@ TINYLLAMA = dict(d_model=2048, n_heads=32, n_kv_heads=4, head_dim=64, d_ff=5632,
                  vocab=32000, n_layers=22)
 TINYLLAMA_LAYERS_KEPT = 2
 #: phase 4d's prompts: tinyllama's whole 2048-token context, then shorter
-#: ones; 1000, 333 and 77 leave the kernel's last 32-row tile partial and do
+#: ones; 1000, 333 and 77 leave the kernel's last 64-row tile partial and do
 #: not split into equal prompt chunks
 FULL_PROMPTS = (2048, 1536, 1024, 1000, 512, 512, 333, 77)
 FULL_SLOTS, FULL_CACHE, FULL_NEW = 4, 2064, 16
@@ -262,7 +273,7 @@ def read_counts(names) -> dict:
 # --------------------------------------------------------------------------- phase 1
 @phase("1 build")
 def build() -> dict:
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, flash_attention
 
     t0 = time.perf_counter()
     _build.library()
@@ -272,7 +283,28 @@ def build() -> dict:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+    hgmma = tensor_core_instructions()
+    print(f"  HGMMA instructions in the SASS of the bf16 flash kernel, by head dim: {hgmma}")
+    check(sorted(hgmma) == list(flash_attention.HEAD_DIMS) and all(hgmma.values()),
+          f"the bf16 flash kernel does not run on the tensor cores: {hgmma}")
     return {"build_s": secs}
+
+
+def tensor_core_instructions() -> dict:
+    """head dim -> HGMMA instructions in the SASS of the bf16 flash kernel of
+    the built library (cuobjdump, beside nvcc)."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = block.split("\n", 1)[0]
+        found = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", name)
+        if found:
+            counts[int(found.group(1))] = len(re.findall(r"\bHGMMA\.", block))
+    return counts
 
 
 def card_line() -> str:
@@ -290,14 +322,22 @@ def kernels_vs_plain(dev, gen, errs: dict, big_words: int = MiB // 4) -> None:
         errs[name] = max(errs.get(name, 0), err)
         check(err == 0, f"{name}: kernel disagrees with its plain version (max err {err})")
 
-    # memcpy: ragged counts, an unaligned start (scalar path), PE spans
-    base = rand_words(gen, big_words + 8, dev)
-    for n in sorted({1, 5, 4099, min(65539, big_words), big_words}):
-        for start in (0, 1):
-            src = base[start:start + n]
+    # memcpy: ragged counts, unaligned starts (the scalar path), PE spans; and
+    # on the bulk ring, spans one word either side of its threshold (a full
+    # ring per SM) and of a chunk boundary past it, a ragged last span
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    T, chunk = sms * COPY_STAGES * COPY_CHUNK_WORDS, COPY_CHUNK_WORDS
+    ring_sizes = (T - 1, T + 1, T + chunk - 1, T + chunk + 1, 4 * T - 1, 4 * T + chunk + 3)
+    copy_base = rand_words(gen, 4 * T + chunk + 8, dev)
+    for n in sorted({1, 5, 4099, min(65539, big_words), big_words, *ring_sizes}):
+        for start in (0, 1, 2, 3):
+            src = copy_base[start:start + n]
             for n_pe in (1, 3, 4):
                 got = memcpy.memcpy_words(src, n_pe=n_pe)
                 note("memcpy_words", max_abs_err(got, memcpy.memcpy_words_plain(src, n_pe=n_pe)))
+    del copy_base, got
+    base = rand_words(gen, big_words + 8, dev)
     # CRC chunk states, the fold and copy+CRC: 4099 words is prime (C = 1)
     tabs = ops._tables(base.device)
     for n in sorted({1, 3, 1000, 4099, min(65536, big_words), big_words}):
@@ -1084,6 +1124,24 @@ FLASH_CASES = (
     (1, 2048, 2048, 4, 1, 32, True, 0, 0, torch.float32),
     (1, 300, 100, 4, 2, 64, True, 32, 0, torch.float32),
     (1, 300, 100, 4, 2, 64, False, 32, 0, torch.bfloat16),
+    # Sq > Skv with a window and a meta prefix: late rows see only the meta keys
+    (1, 300, 100, 4, 2, 64, True, 32, 4, torch.bfloat16),
+    (1, 300, 100, 4, 2, 64, True, 32, 4, torch.float32),
+    # the bf16 kernel's tile edges (64 rows, 64 keys; 32 keys at hd 256) and
+    # B = 2 with a ragged Skv (a box past the tail must not read the next
+    # batch's rows); every head dim in bf16 with G = 1, 4 and 8
+    (1, 63, 63, 4, 4, 32, True, 0, 0, torch.bfloat16),
+    (1, 64, 64, 8, 2, 32, False, 0, 0, torch.bfloat16),
+    (2, 65, 65, 8, 1, 32, True, 0, 0, torch.bfloat16),
+    (1, 129, 129, 2, 2, 64, True, 0, 0, torch.bfloat16),
+    (1, 63, 63, 8, 2, 64, False, 0, 0, torch.bfloat16),
+    (2, 100, 100, 8, 1, 64, True, 0, 0, torch.bfloat16),
+    (1, 64, 64, 4, 4, 128, True, 0, 0, torch.bfloat16),
+    (2, 129, 129, 8, 2, 128, True, 40, 3, torch.bfloat16),
+    (1, 65, 65, 8, 1, 128, False, 0, 0, torch.bfloat16),
+    (2, 77, 77, 2, 2, 256, True, 0, 0, torch.bfloat16),
+    (1, 129, 129, 8, 2, 256, True, 0, 0, torch.bfloat16),
+    (2, 100, 100, 8, 1, 256, False, 0, 0, torch.bfloat16),
 )
 
 
@@ -1587,16 +1645,24 @@ def times_4(dev, gen) -> list:
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev).zero_()
     B, S, H, KV, hd = 1, 2048, 32, 4, 64
     q, k, v = flash_inputs(gen, dev, B, S, S, H, KV, hd, torch.bfloat16)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     try:
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
-                                                     enable_gqa=True)
-        lib()
+        F.scaled_dot_product_attention(q[:, :1].transpose(1, 2), k[:, :1].transpose(1, 2),
+                                       v[:, :1].transpose(1, 2), enable_gqa=True)
+        gqa = True
         call = "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) on [B,H,S,hd] views"
     except TypeError:  # a torch without enable_gqa: the KV heads expanded first
-        ke, ve = kt.repeat_interleave(H // KV, 1), vt.repeat_interleave(H // KV, 1)
-        lib = lambda: F.scaled_dot_product_attention(qt, ke, ve, is_causal=True)  # noqa: E731
+        gqa = False
         call = "F.scaled_dot_product_attention(is_causal=True) on KV heads expanded beforehand"
+
+    def sdpa(q, k, v):
+        """The library call on [B, S, heads, hd] tensors, as a thunk."""
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if not gqa:
+            kt, vt = kt.repeat_interleave(H // KV, 1), vt.repeat_interleave(H // KV, 1)
+        kw = dict(enable_gqa=True) if gqa else {}
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **kw)
+
+    lib = sdpa(q, k, v)
     sdpa_err = float((lib().transpose(1, 2).float() - fa.flash_attention(q, k, v).float())
                      .abs().max())
     pairs = B * S * (S + 1) // 2  # visible (query, key) pairs of a causal mask
@@ -1619,6 +1685,13 @@ def times_4(dev, gen) -> list:
         qs, ks, vs = q[:, :n].contiguous(), k[:, :n].contiguous(), v[:, :n].contiguous()
         print(f"  flash_attention at the {n}-token prefill (cold L2): "
               f"{cold_ms(lambda: fa.flash_attention(qs, ks, vs), 20, flush):.4f} ms")
+    for hd_other in (128, 256):  # the other head dims the configs use, at the same S and H
+        qh, kh, vh = flash_inputs(gen, dev, B, S, S, H, KV, hd_other, torch.bfloat16)
+        bound_other = flops * hd_other // hd / H100_SXM_BF16_OPS * 1e3
+        print(f"  flash_attention at hd {hd_other} (cold L2): "
+              f"{cold_ms(lambda: fa.flash_attention(qh, kh, vh), 20, flush):.4f} ms, "
+              f"SDPA {cold_ms(sdpa(qh, kh, vh), 20, flush):.4f} ms, "
+              f"bound {bound_other:.4f} ms (operations)")
     return [row]
 
 

@@ -3,9 +3,12 @@
 ``flash_attention`` takes q [B, Sq, H, hd] and k, v [B, Skv, KV, hd] (bf16 or
 f32, H a multiple of KV: query head h reads KV head h // (H // KV)) and
 returns the attention output [B, Sq, H, hd] in q's type.  On CUDA tensors it
-launches ``flash_attention_kernel`` (csrc/flash_attention.cu), which replaces
-the JAX package's Pallas ``flash_attention`` (repro/kernels/flash_attention.py:72);
-on CPU tensors it runs :func:`flash_attention_plain`.
+launches a kernel of csrc/flash_attention.cu, which replaces the JAX package's
+Pallas ``flash_attention`` (repro/kernels/flash_attention.py:72): for bf16
+``flash_attention_wgmma_kernel`` (Hopper tensor cores through wgmma, TMA
+loads), for f32 ``flash_attention_f32_kernel`` (CUDA cores: f32 must hold
+1e-5, which tensor cores cannot).  On CPU tensors it runs
+:func:`flash_attention_plain`.
 
 The function, as the reference computes it: scores in f32 scaled by
 ``scale`` (default 1/sqrt(hd)); masked scores are the finite ``NEG_INF``;
@@ -71,7 +74,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (the kernel loads 4 elements at a time)."""
+    """``t`` contiguous and 16-byte aligned (float4 loads of the f32 kernel, TMA
+    of the bf16 one)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -110,8 +114,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: tensors on {dev} are not supported; the "
                          f"kernel takes CUDA tensors, the plain version CPU tensors")
-    if B * H > 65535:
-        raise ValueError(f"flash_attention: B * H = {B * H} exceeds the grid's 65535")
+    # the grid's second dimension (at most 65535): B * H for f32, the
+    # 64-row query tiles for bf16
+    if (B * H if q.dtype == torch.float32 else -(-Sq // 64)) > 65535:
+        raise ValueError(f"flash_attention: B * H = {B * H} or Sq = {Sq} exceeds the grid")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)

@@ -187,3 +187,148 @@ def test_flash_has_no_backward_yet(rng):
     q, k, v = (t.requires_grad_() for t in map(_t, _inputs(rng, 1, 8, 8, 2, 1, 32)))
     with pytest.raises(NotImplementedError):
         TL.attention_trainable(q, k, v, impl="flash")
+
+
+# --------------------------------------------------------------------------- bf16 tile walk
+# A PyTorch model of the bf16 tensor-core kernel (csrc/flash_attention.cu,
+# flash_attention_wgmma_kernel): 64-row query tiles, 64-key tiles (32 at hd
+# 256), its tile walk (tile_walk: skipped tiles, meta tiles first, every tile
+# for a CTA holding a row with no visible key), masks only on cut tiles, tail
+# keys with no weight at all, p rounded to v's type against each tile's
+# running max, l summing the unrounded p.  It pins the walk's arithmetic
+# (k_lo, k_hi, t_meta) on the CPU; the kernel itself runs only on the card.
+MODEL_ROWS = 64
+NO_KEY = -3.0e38
+
+
+def _model_bk(hd):
+    return 32 if hd == 256 else 64
+
+
+def _tile_walk(q0, q1, Skv, bk, causal, window, n_meta):
+    """The key tiles a CTA of query rows [q0, q1] walks, in the kernel's order."""
+    k_lo, k_hi = 0, (min(q1 + 1, Skv) if causal else Skv)
+    if window > 0:
+        k_lo = max(0, q0 - window + 1)
+        if n_meta <= 0 and q1 >= Skv - 1 + window:  # a row with no visible key
+            k_lo, k_hi = 0, Skv
+    t_hi = -(-k_hi // bk)
+    t_lo = min(k_lo // bk, t_hi)
+    t_meta = min(-(-min(n_meta, k_hi) // bk), t_lo) if window > 0 and n_meta > 0 else 0
+    # TileWalk.count() and .tile(it)
+    return [it if it < t_meta else t_lo + (it - t_meta) for it in range(t_meta + t_hi - t_lo)]
+
+
+def _tile_model(q, k, v, *, causal=True, window=0, n_meta=0, scale=None):
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    bk = _model_bk(hd)
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty(B, Sq, H, hd, dtype=q.dtype)
+    for b in range(B):
+        for h in range(H):
+            kvh = h // (H // KV)
+            for q0 in range(0, Sq, MODEL_ROWS):
+                q1 = min(q0 + MODEL_ROWS, Sq) - 1
+                rows = torch.arange(q0, q0 + MODEL_ROWS)
+                Q = torch.zeros(MODEL_ROWS, hd)  # TMA zero-fills rows past Sq
+                Q[:q1 - q0 + 1] = qf[b, q0:q1 + 1, h]
+                m = torch.full((MODEL_ROWS,), tflash.NEG_INF)
+                l = torch.zeros(MODEL_ROWS)
+                acc = torch.zeros(MODEL_ROWS, hd)
+                for t in _tile_walk(q0, q1, Skv, bk, causal, window, n_meta):
+                    k0 = t * bk
+                    n = min(bk, Skv - k0)
+                    K, V = torch.zeros(bk, hd), torch.zeros(bk, hd)
+                    K[:n], V[:n] = kf[b, k0:k0 + n, kvh], vf[b, k0:k0 + n, kvh]
+                    s = (Q @ K.T) * scale
+                    whole = (k0 + bk <= Skv and (not causal or k0 + bk - 1 <= q0)
+                             and (window <= 0 or q1 - k0 < window or k0 + bk <= n_meta))
+                    if not whole:
+                        kpos = torch.arange(k0, k0 + bk)
+                        vis = tflash.mask_block(rows, kpos, causal=causal, window=window,
+                                                n_meta=n_meta)
+                        s = torch.where(vis, s, torch.tensor(tflash.NEG_INF))
+                        s = torch.where(kpos[None] < Skv, s, torch.tensor(NO_KEY))
+                    m_new = torch.maximum(m, s.amax(dim=1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(s - m_new[:, None])
+                    l = l * alpha + p.sum(dim=1)
+                    acc = acc * alpha[:, None] + p.to(v.dtype).float() @ V
+                    m = m_new
+                o = acc / l.clamp_min(1e-30)[:, None]
+                out[b, q0:q1 + 1, h] = o[:q1 - q0 + 1].to(q.dtype)
+    return out
+
+
+# B, Sq, Skv, H, KV, hd, causal, window, n_meta: lengths at the tile edges,
+# windows with and without a meta prefix, and Sq > Skv with rows that see no
+# key (without n_meta) or only the meta keys (with it)
+TILE_CASES = [
+    (1, 1, 1, 2, 1, 64, True, 0, 0),
+    (1, 63, 63, 2, 1, 64, True, 0, 0),
+    (1, 64, 64, 2, 2, 64, True, 0, 0),
+    (2, 65, 65, 2, 1, 64, True, 0, 0),
+    (1, 77, 77, 4, 1, 32, False, 0, 0),
+    (1, 129, 129, 2, 1, 128, True, 0, 0),
+    (1, 129, 129, 2, 2, 256, True, 0, 0),
+    (1, 1000, 1000, 2, 1, 64, True, 0, 0),
+    (1, 200, 200, 2, 1, 64, True, 48, 0),
+    (1, 200, 200, 2, 1, 64, True, 48, 5),
+    (1, 200, 200, 2, 1, 256, True, 40, 70),
+    (1, 300, 100, 2, 1, 64, True, 32, 0),
+    (1, 300, 100, 2, 1, 64, False, 32, 0),
+    (1, 300, 100, 2, 1, 64, True, 32, 4),
+    (1, 300, 100, 2, 1, 32, False, 16, 3),
+]
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_the_kernels_tile_walk_reaches_every_visible_key(case):
+    """Every tile holding a key some row < Sq can see is walked once; the
+    meta tiles come first; a CTA with a row that sees no key walks them all."""
+    _, Sq, Skv, _, _, hd, causal, window, n_meta = case
+    bk = _model_bk(hd)
+    n_tiles = -(-Skv // bk)
+    for q0 in range(0, Sq, MODEL_ROWS):
+        q1 = min(q0 + MODEL_ROWS, Sq) - 1
+        walk = _tile_walk(q0, q1, Skv, bk, causal, window, n_meta)
+        assert len(set(walk)) == len(walk) and all(0 <= t < n_tiles for t in walk)
+        mask = tflash.mask_block(torch.arange(q0, q1 + 1), torch.arange(Skv), causal=causal,
+                                 window=window, n_meta=n_meta)
+        needed = {int(kp) // bk for kp in mask.any(dim=0).nonzero().flatten()}
+        assert needed <= set(walk), (q0, walk, sorted(needed))
+        if not mask.any(dim=1).all():
+            assert sorted(walk) == list(range(n_tiles))
+        meta = [t for t in walk if t * bk < n_meta]
+        assert walk[:len(meta)] == meta
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_the_kernels_tile_walk_matches_the_plain_version(rng, case):
+    """f32: the walk and its masks give the plain version's result; bf16: so
+    does the kernel's rounding of p against each tile's running max."""
+    B, Sq, Skv, H, KV, hd, causal, window, n_meta = case
+    q, k, v = _inputs(rng, B, Sq, Skv, H, KV, hd)
+    kw = dict(causal=causal, window=window, n_meta=n_meta)
+    got = _tile_model(_t(q), _t(k), _t(v), **kw)
+    want = tflash.flash_attention_plain(_t(q), _t(k), _t(v), **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
+    bf = torch.bfloat16
+    got = _tile_model(_t(q, bf), _t(k, bf), _t(v, bf), **kw)
+    want = tflash.flash_attention_plain(_t(q, bf), _t(k, bf), _t(v, bf), **kw)
+    assert got.dtype == bf
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("case", [c for c in TILE_CASES if c[1] < 1000])
+def test_the_kernels_tile_walk_matches_the_pallas_kernel(rng, case):
+    B, Sq, Skv, H, KV, hd, causal, window, n_meta = case
+    q, k, v = _inputs(rng, B, Sq, Skv, H, KV, hd)
+    bf = jnp.bfloat16
+    want = j_flash(_j(q, bf), _j(k, bf), _j(v, bf), causal=causal, window=window,
+                   n_meta=n_meta)
+    got = _tile_model(_t(q, torch.bfloat16), _t(k, torch.bfloat16), _t(v, torch.bfloat16),
+                      causal=causal, window=window, n_meta=n_meta)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **BF16_TOL)
