@@ -15,6 +15,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      over 1, 3 and 4 PE spans), over float32,
      bfloat16, int8 and uint32, batches with duplicate destinations and
      untouched pages; CRC and copy+CRC also against zlib (sizes <= 1 MiB);
+     the CRC pair at the edges of its sub-chunk split (W of 1 .. a prime
+     above 40 sub-chunks, C = 1, 3, 256, views from words 0-3 so both load
+     paths run, and 1 GiB) against its plain version or zlib per chunk, and
+     the fold against both plain versions (C = 1 .. 256, S = 1, 33, 4096);
   2b. each slice-2 kernel the same way: fills with 1-, 2- and 4-word
      patterns, compares with the difference at word 0, in the middle, at
      the last word and nowhere, delta records with 0, a few, exactly cap and
@@ -74,9 +78,12 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
      ``scaled_dot_product_attention``, also at hd 128 and 256); the save
-     and restore seconds of phase 4c;
+     and restore seconds of phase 4c; ``ops.crc32`` end to end at 4 KiB ..
+     1 GiB;
   6. the launch counts of each slice's main path, set to 0 just before it
-     and read just after: every kernel of the path must have launched.
+     and read just after: every kernel of the path must have launched; and
+     of one ``ops.crc32`` at 4 KiB .. 1 GiB: one CRC launch, plus the
+     sub-chunk fold only where a chunk is longer than one sub-chunk.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits with 2, printing
@@ -243,7 +250,7 @@ def kernel_table():
                              "src/repro/kernels/batch_copy.py:30"),
         "crc32_chunk_states": (crc32.crc32_chunk_states,
                                "src/repro/kernels/crc32.py:58"),
-        "gf2_fold": (crc32.combine_chunk_crcs, "src/repro/kernels/crc32.py:97"),
+        "gf2_fold": (crc32.fold_crcs, "src/repro/kernels/crc32.py:97"),
         "copy_crc_words": (fused.copy_crc_words, "src/repro/kernels/fused.py:56"),
         "fill_words": (fill.fill_words, "src/repro/kernels/fill.py:28"),
         "compare_words": (compare.compare_words, "src/repro/kernels/compare.py:25"),
@@ -315,7 +322,8 @@ def card_line() -> str:
 
 # --------------------------------------------------------------------------- phase 2
 @phase("2 kernels against their plain versions")
-def kernels_vs_plain(dev, gen, errs: dict, big_words: int = MiB // 4) -> None:
+def kernels_vs_plain(dev, gen, errs: dict, big_words: int = MiB // 4,
+                     crc_big: int = GiB) -> None:
     from repro_torch.kernels import batch_copy, crc32, fused, memcpy, ops, ref
 
     def note(name, err):
@@ -358,6 +366,7 @@ def kernels_vs_plain(dev, gen, errs: dict, big_words: int = MiB // 4) -> None:
         check(int(ops.crc32(base[:n])) == want, f"crc32 of {n} words != zlib")
         cpy, crc = ops.copy_crc(base[:n])
         check(int(crc) == want and same_bits(cpy, base[:n]), f"copy_crc of {n} words")
+    crc_pair_edges(dev, gen, note, tabs, crc_big)
     # four dtypes through the ops layer, ragged shapes
     for dtype, shape in ((torch.float32, (513, 130)), (torch.bfloat16, (1000, 6)),
                          (torch.int8, (4099, 4)), (torch.uint32, (big_words,))):
@@ -390,6 +399,64 @@ def kernels_vs_plain(dev, gen, errs: dict, big_words: int = MiB // 4) -> None:
         check(same_bits(got, want), f"ops.batch_copy {dtype}")
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+def zlib_states(data: torch.Tensor) -> torch.Tensor:
+    """zlib's CRC of each row of the word tensor ``data`` [C, W], computed
+    on the host, as uint32 [C] on ``data``'s device."""
+    rows = host(data.contiguous()).view(torch.int32).numpy()
+    crcs = np.array([zlib.crc32(memoryview(np.ascontiguousarray(r))) for r in rows],
+                    dtype=np.uint32)
+    return torch.from_numpy(crcs.view(np.int32)).to(data.device).view(torch.uint32)
+
+
+def crc_pair_edges(dev, gen, note, tabs, big: int = GiB) -> None:
+    """The CRC pair and the fold at the edges of the sub-chunk split: every
+    width below at C = 1, 3 and 256, each view starting at words 0-3 (whole
+    sub-chunks 16-byte aligned or not: both load paths), against the plain
+    version where W <= L + 1 (L = SUB_WORDS), else against zlib of each
+    chunk; the pair at ``big`` bytes (C = 256) against zlib of each chunk;
+    the fold against combine_chunk_crcs_plain at C = 1, 2, 31, 32, 33, 256
+    and against fold_crcs_plain at S = 1, 33, 4096 (G = 256)."""
+    from repro_torch.kernels import crc32, fused, ops
+
+    L = crc32.SUB_WORDS
+    # either side of one sub-chunk and of 32 (one a lane of the fold), a
+    # ragged first sub-chunk, and a prime above 40 sub-chunks
+    widths = (1, L - 1, L, L + 1, 2 * L + 1, 31 * L, 32 * L, 32 * L + 1, 33 * L + 5, 10243)
+    base = rand_words(gen, 256 * max(widths) + 8, dev)
+    for C in (1, 3, 256):
+        for W in widths:
+            for start in range(4):
+                data = base[start:start + C * W].view(C, W)
+                want = (crc32.crc32_chunk_states_plain(data, tabs) if W <= L + 1
+                        else zlib_states(data))
+                note("crc32_chunk_states", max_abs_err(crc32.crc32_chunk_states(data, tabs), want))
+                st, cp = fused.copy_crc_words(data, tabs)
+                note("copy_crc_words", max_abs_err(st, want))
+                check(same_bits(cp, data), f"copy_crc_words copy at C={C} W={W} start={start}")
+    del base
+    if big:
+        src = rand_words(gen, big // 4, dev)
+        data = src.view(ops._pick_chunks(src.numel()), -1)
+        want = zlib_states(data)
+        note("crc32_chunk_states", max_abs_err(crc32.crc32_chunk_states(data, tabs), want))
+        st, cp = fused.copy_crc_words(data, tabs)
+        note("copy_crc_words", max_abs_err(st, want))
+        check(same_bits(cp, data), f"copy_crc_words copy of {big} B")
+        del src, data, cp
+    for C in (1, 2, 31, 32, 33, 256):
+        states = rand_words(gen, C, dev)
+        mat = ops._shift_mat(4 * 7, dev)
+        note("gf2_fold", max_abs_err(crc32.combine_chunk_crcs(states, mat).reshape(1),
+                                     crc32.combine_chunk_crcs_plain(states, mat).reshape(1)))
+    base_mat = ops._shift_mat(4 * L, dev)
+    for S in (1, 33, 4096):
+        crcs = rand_words(gen, 256 * S, dev).view(256, S)
+        note("gf2_fold", max_abs_err(crc32.fold_crcs(crcs, base_mat),
+                                     crc32.fold_crcs_plain(crcs, base_mat, 256, S)))
+    print(f"CRC pair at C = 1, 3, 256 and W = {widths} from word offsets 0-3, and at "
+          f"{big} B; the fold at C = 1 .. 256 and S = 1, 33, 4096: bit-exact")
 
 
 def record_err(got, want) -> int:
@@ -1377,6 +1444,31 @@ def flash_vs_chunked(model, params, prompt, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- phase 6
+def crc_launches(dev, gen, big: int = GiB) -> dict:
+    """Launches of one ``ops.crc32`` at 4 KiB .. ``big`` bytes, by kernel,
+    each counted from 0.  A chunk of W <= SUB_WORDS words keeps one CRC
+    launch and no sub-chunk fold (4 KiB: 256 chunks of 4 words, then the
+    fold of their states); a longer one adds the fold of its sub-chunk
+    CRCs."""
+    from repro_torch.kernels import crc32, ops
+
+    src = rand_words(gen, big // 4, dev)
+    out = {}
+    for nbytes in (4 * KiB, MiB, 64 * MiB, big):
+        reset_counts()
+        ops.crc32(src[:nbytes // 4])
+        out[nbytes] = read_counts(("crc32_chunk_states", "gf2_fold"))
+        W = nbytes // 4 // ops._pick_chunks(nbytes // 4)
+        sub_fold = int(crc32.subchunk_plan(W)[0] > 1)
+        check(out[nbytes] == {"crc32_chunk_states": 1, "gf2_fold": 1 + sub_fold},
+              f"ops.crc32 of {nbytes} B launched {out[nbytes]}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"launches of one ops.crc32, by size in bytes: {out}")
+    return out
+
+
 # --------------------------------------------------------------------------- phase 5
 def cold_ms(fn, reps: int, flush: torch.Tensor) -> float:
     """Median device time of one call of ``fn`` with the L2 flushed before
@@ -1453,7 +1545,7 @@ def times(dev, gen, pool, plain_words: int = MiB // 4, big: int = GiB,
     small = src[:plain_words].view(ops._pick_chunks(plain_words), -1)
     row("crc32_chunk_states", f"[{C}, {data.shape[1]}] u32 (1 GiB)", big + 4 * C,
         CRC_OPS_PER_WORD * (big // 4),
-        cold_ms(lambda: crc32.crc32_chunk_states(data, tabs), 3, flush),
+        cold_ms(lambda: crc32.crc32_chunk_states(data, tabs), 10, flush),
         cold_ms(lambda: crc32.crc32_chunk_states_plain(small, tabs), 3, flush),
         f"[{small.shape[0]}, {small.shape[1]}] u32", None)
     print(f"  crc32_chunk_states at {tuple(small.shape)} (cold L2): "
@@ -1469,14 +1561,26 @@ def times(dev, gen, pool, plain_words: int = MiB // 4, big: int = GiB,
         cold_ms(lambda: crc32.combine_chunk_crcs(states, mat), 50, flush),
         cold_ms(lambda: crc32.combine_chunk_crcs_plain(states, mat), 3, flush),
         f"[{C}] u32 states", None)
-    del data, src
+    S, _ = crc32.subchunk_plan(data.shape[1])
+    sub = rand_words(gen, C * S, dev).view(C, S)
+    sub_mat = ops._shift_mat(4 * crc32.SUB_WORDS, dev)
+    print(f"  fold_crcs at the sub-chunk CRCs of 1 GiB {tuple(sub.shape)} (cold L2): "
+          f"{cold_ms(lambda: crc32.fold_crcs(sub, sub_mat), 20, flush):.4f} ms")
+    # ops.crc32 end to end: the chunk choice, the CRC pair and its folds
+    for nbytes in (4 * KiB, MiB, 64 * MiB, big):
+        s = src[:nbytes // 4]
+        ms = cold_ms(lambda: ops.crc32(s), 10, flush)
+        bound_ms = _bound(nbytes)[0]
+        print(f"  ops.crc32 end to end at {nbytes} B (cold L2): {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes), {ms / bound_ms:.2f}x the bound")
+    del data, src, sub
     # copy + CRC of the 256 MiB checkpoint leaf
     leaf = rand_words(gen, leaf_bytes // 4, dev)
     C = ops._pick_chunks(leaf.numel())
     ldata = leaf.view(C, -1)
     row("copy_crc_words", f"[{C}, {ldata.shape[1]}] u32 (256 MiB)", 2 * leaf_bytes + 4 * C,
         CRC_OPS_PER_WORD * leaf.numel(),
-        cold_ms(lambda: fused.copy_crc_words(ldata, tabs), 3, flush),
+        cold_ms(lambda: fused.copy_crc_words(ldata, tabs), 10, flush),
         cold_ms(lambda: fused.copy_crc_words_plain(small, tabs), 3, flush),
         f"[{small.shape[0]}, {small.shape[1]}] u32", None)
     del leaf, ldata
@@ -1760,6 +1864,7 @@ def run() -> int:
           f"a kernel of the slice-4 main path never launched in phase 3d: {counts_3d}")
     full = serving_full(dev)  # sets the counts to 0 itself, reads them after serving
     counts4 = full["launches"]
+    crc_launches(dev, gen)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     rows = {r["name"]: r for r in times(dev, gen, shapes["pool"])}
     del shapes

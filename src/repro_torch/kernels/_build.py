@@ -44,7 +44,7 @@ _SIGNATURES = {
     "dsa_batch_copy_pages": (_P, _P, _P, _P, _I, _LL, _LL, _LL, _P),
     "dsa_crc32_chunk_states": (_P, _P, _P, _I, _LL, _P),
     "dsa_copy_crc_words": (_P, _P, _P, _P, _I, _LL, _P),
-    "dsa_gf2_fold": (_P, _P, _P, _I, _P),
+    "dsa_crc_fold": (_P, _P, _P, _I, _I, _P),
     "dsa_fill_words": (_P, _LL, _I, _U, _U, _U, _U, _P),
     "dsa_compare_words": (_P, _P, _LL, _P, _P, _P, _P),
     "dsa_compare_pattern_words": (_P, _LL, _U, _U, _U, _U, _P, _P, _P, _P),

@@ -14,8 +14,10 @@ constexpr int kCopyThreads = 256;
 // Enough 256-thread CTAs to keep every SM of an H100 (132 SMs) full; a
 // grid-stride loop covers anything larger.
 constexpr int kMaxCopyBlocks = 132 * 8;
-// CRC chains per CTA: one warp, so the <= 256 chains spread over 8 SMs.
-constexpr int kCrcThreads = 32;
+// CRC chains (sub-chunks) per CTA.
+constexpr int kCrcThreads = 256;
+// Words of every sub-chunk but a chunk's first (kernels/crc32.py SUB_WORDS).
+constexpr int kSubWords = 128;
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
@@ -189,64 +191,142 @@ __global__ void batch_copy_pages_kernel(const uint32_t* __restrict__ src_pool,
 // (kCopy = false) and kernels/fused.py copy_crc_words / _copy_crc_kernel
 // (kCopy = true).
 // Bound: bytes (each word is read once; about 15 integer operations per word
-// are far below the card's rate).  This design is further bound by latency:
-// each word is one dependent slice-by-4 step (four shared-memory lookups and
-// four xors) on its chunk's serial chain, and the JAX package's chunk choice
-// allows at most 256 chains, so chain latency on a few SMs, not device
-// memory, sets the time (PERF.md: 0.3 % of the bound at 1 GiB).
-// Design: the [4,256] tables sit in shared memory (4 KiB per CTA).  One
-// thread per chunk runs the step over its W contiguous words; one warp per
-// CTA spreads the chains over C/32 SMs.  The copy variant stores each word it
-// has just read to dst, so copy and checksum share one read pass.  The final
-// xor matches crc32.py:82.
+// are far below the card's rate).  A CRC is a chain of dependent steps, and
+// the JAX package's chunk choice gives at most 256 chunks, so one chain per
+// chunk leaves the card nearly idle (0.3 % of the bound at 1 GiB, PERF.md).
+// Design: each chunk of W words splits into S sub-chunks (crc32.py
+// subchunk_plan): words [0, h), then S - 1 of kSubWords words, so only the
+// first is short.  One thread per (chunk, sub-chunk) runs the slice-by-4 step
+// over its words (four shared-memory lookups and four xors a word, the
+// [4,256] tables in shared memory, 4 KiB per CTA) and writes the sub-chunk's
+// finished zlib CRC to crcs[c * S + k]; crc_fold_kernel folds them into the
+// chunk states.  Where S = 1 the CRCs are the states and nothing else runs.
+// At 1 GiB (C = 256, W = 1 Mi words) that is 2 Mi chains of 512 bytes, about
+// eight waves of the card's resident threads; of 128 and 256 words,
+// 128 was as fast at 1 GiB and faster for the copy and at 1 MiB (PERF.md).  With `vec` (every whole
+// sub-chunk starts 16-byte aligned) a thread issues four 16-byte loads, its
+// two 32-byte sectors whole, before the 16 dependent steps on them; the copy
+// variant stores what it loaded, also 16 bytes at a time.  The first
+// sub-chunk, and every word without `vec`, goes one 4-byte word at a time.
+__device__ __forceinline__ uint32_t crc_step(const uint32_t (*t)[256], uint32_t st,
+                                             uint32_t word) {
+  const uint32_t x = st ^ word;
+  return t[3][x & 0xFFu] ^ t[2][(x >> 8) & 0xFFu] ^ t[1][(x >> 16) & 0xFFu] ^
+         t[0][x >> 24];
+}
+
 template <bool kCopy>
-__global__ void crc_chunks_kernel(const uint32_t* __restrict__ data,
-                                  const uint32_t* __restrict__ tables,
-                                  uint32_t* __restrict__ states,
-                                  uint32_t* __restrict__ dst, int C,
-                                  long long W) {
+__global__ void __launch_bounds__(kCrcThreads)
+crc_chunks_kernel(const uint32_t* __restrict__ data, const uint32_t* __restrict__ tables,
+                  uint32_t* __restrict__ crcs, uint32_t* __restrict__ dst, int C,
+                  long long W, int S, long long h, bool vec) {
   __shared__ uint32_t t[4][256];
   for (int k = threadIdx.x; k < 4 * 256; k += blockDim.x)
     t[k >> 8][k & 255] = tables[k];
   __syncthreads();
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const long long base = static_cast<long long>(c) * W;
-  const uint32_t* p = data + base;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(C) * S) return;
+  const long long c = i / S;
+  const int k = static_cast<int>(i - c * S);
+  const long long begin =
+      c * W + (k == 0 ? 0 : h + static_cast<long long>(k - 1) * kSubWords);
+  const long long n = k == 0 ? h : kSubWords;
+  const uint32_t* p = data + begin;
+  uint32_t* q = kCopy ? dst + begin : nullptr;
   uint32_t st = 0xFFFFFFFFu;
-  for (long long w = 0; w < W; ++w) {
-    const uint32_t word = p[w];
-    if (kCopy) dst[base + w] = word;
-    const uint32_t x = st ^ word;
-    st = t[3][x & 0xFFu] ^ t[2][(x >> 8) & 0xFFu] ^ t[1][(x >> 16) & 0xFFu] ^
-         t[0][x >> 24];
+  long long w = 0;
+  if (vec && k > 0) {
+    const uint4* p4 = reinterpret_cast<const uint4*>(p);
+    uint4* q4 = reinterpret_cast<uint4*>(q);
+    for (; w < n; w += 16) {
+      uint4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = p4[w / 4 + j];
+      if (kCopy) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) q4[w / 4 + j] = v[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        st = crc_step(t, st, v[j].x);
+        st = crc_step(t, st, v[j].y);
+        st = crc_step(t, st, v[j].z);
+        st = crc_step(t, st, v[j].w);
+      }
+    }
   }
-  states[c] = st ^ 0xFFFFFFFFu;
+  for (; w < n; ++w) {
+    const uint32_t word = p[w];
+    if (kCopy) q[w] = word;
+    st = crc_step(t, st, word);
+  }
+  crcs[i] = st ^ 0xFFFFFFFFu;
 }
 
-// ------------------------------------------------------------------ gf2_fold
+// ------------------------------------------------------------------ crc_fold (gf2_fold)
 // Replaces kernels/crc32.py combine_chunk_crcs / gf2_apply, which the JAX
-// package runs as jnp outside the Pallas kernel.
-// Bound: latency.  The bytes are under 2 KiB; the time is C - 1 dependent
-// 32-term GF(2) matrix-vector products (crc32_combine with equal chunk
-// lengths) on one thread, about 0.08 ms at C = 256 (PERF.md).
-// Design: one thread folds the chunk CRCs left to right with the [32] shift
-// matrix held in registers, so the fold is one launch instead of C - 1
-// host-driven steps.
-__global__ void gf2_fold_kernel(const uint32_t* __restrict__ states,
-                                const uint32_t* __restrict__ mat,
-                                uint32_t* __restrict__ out, int C) {
+// package runs as jnp outside the Pallas kernel, and folds the CRC pair's
+// sub-chunk CRCs into chunk states.
+// Bound: latency.  The bytes are a few MiB at most; the time is chains of
+// dependent 32-term GF(2) matrix-vector products (zlib's crc32_combine).
+// Design: crcs holds G groups of S finished CRCs, every one but a group's
+// first of the length base_mat advances over; out[g] is group g's CRC.  One
+// warp a group (crc32.py fold_crcs_plain is the same schedule in PyTorch):
+//   1. lane b builds column b of base^(2^i), i < bit length of S, by
+//      squaring in shared memory;
+//   2. the S CRCs split into 32 contiguous ranges, left to right, lane 0's
+//      holding CRC 0 (lanes right of the last CRC get none when S < 32);
+//   3. each lane folds its range serially, acc = base acc ^ crc, from 0;
+//   4. five shuffle levels join lane pairs left to right, each carrying
+//      (acc, count): acc_left = base^count_right acc_left ^ acc_right, one
+//      product per set bit of count_right, then the counts add.  An empty
+//      range (count 0, acc 0: the CRC of no bytes) leaves its partner as it
+//      was.
+// The serial part is S / 32 products a lane and at most 5 x (bit length of
+// S) in the tree, against S - 1 on one thread before.
+constexpr int kFoldLanes = 32;
+
+// GF(2): the matrix of columns m[0..31] times v.
+__device__ __forceinline__ uint32_t gf2_times(const uint32_t* m, uint32_t v) {
+  uint32_t s = 0;
+#pragma unroll
+  for (int b = 0; b < 32; ++b) s ^= m[b] & (0u - ((v >> b) & 1u));
+  return s;
+}
+
+__global__ void __launch_bounds__(kFoldLanes)
+crc_fold_kernel(const uint32_t* __restrict__ crcs, const uint32_t* __restrict__ base_mat,
+                uint32_t* __restrict__ out, int G, int S) {
+  __shared__ uint32_t pw[32][kFoldLanes];  // pw[i] = base^(2^i), i < bit length of S
+  const int lane = threadIdx.x;
+  const int g = blockIdx.x;
+  const int n_pow = 32 - __clz(S);
+  pw[0][lane] = base_mat[lane];
+  __syncwarp();
+  for (int i = 1; i < n_pow; ++i) {
+    const uint32_t col = gf2_times(pw[i - 1], pw[i - 1][lane]);
+    pw[i][lane] = col;
+    __syncwarp();
+  }
   uint32_t m[32];
 #pragma unroll
-  for (int b = 0; b < 32; ++b) m[b] = mat[b];
-  uint32_t crc = states[0];
-  for (int i = 1; i < C; ++i) {
-    uint32_t s = 0;
-#pragma unroll
-    for (int b = 0; b < 32; ++b) s ^= m[b] & (0u - ((crc >> b) & 1u));
-    crc = s ^ states[i];
+  for (int b = 0; b < 32; ++b) m[b] = pw[0][b];
+  const int q = S / kFoldLanes, r = S % kFoldLanes;
+  int count = q + (lane < r ? 1 : 0);
+  const uint32_t* x = crcs + static_cast<long long>(g) * S + lane * q + min(lane, r);
+  uint32_t acc = 0;
+  for (int k = 0; k < count; ++k) acc = gf2_times(m, acc) ^ x[k];
+  for (int d = 1; d < kFoldLanes; d <<= 1) {
+    const uint32_t acc_right = __shfl_down_sync(0xFFFFFFFFu, acc, d);
+    const int count_right = __shfl_down_sync(0xFFFFFFFFu, count, d);
+    if ((lane & (2 * d - 1)) == 0) {
+      for (int i = 0; i < n_pow; ++i)
+        if ((count_right >> i) & 1) acc = gf2_times(pw[i], acc);
+      acc ^= acc_right;
+      count += count_right;
+    }
   }
-  out[0] = crc;
+  if (lane == 0) out[g] = acc;
 }
 
 // ------------------------------------------------------------------ fill_words
@@ -756,6 +836,29 @@ cudaError_t reset_first_diff(unsigned* state, cudaStream_t s) {
   return err;
 }
 
+// The CRC pair writes C x S sub-chunk CRCs to crcs (S = ceil(W / kSubWords),
+// at least 1): the chunk states themselves where S = 1, else the scratch that
+// dsa_crc_fold folds.
+cudaError_t launch_crc_chunks(const void* data, const void* tables, void* crcs, void* dst,
+                              int C, long long W, void* stream) {
+  const int S = static_cast<int>(W > kSubWords ? (W + kSubWords - 1) / kSubWords : 1);
+  const long long h = W - static_cast<long long>(S - 1) * kSubWords;
+  const uint32_t* d = static_cast<const uint32_t*>(data);
+  const bool vec = S > 1 && (C == 1 || W % 4 == 0) && aligned16(d + h) &&
+                   (dst == nullptr || aligned16(static_cast<uint32_t*>(dst) + h));
+  const unsigned blocks =
+      static_cast<unsigned>((static_cast<long long>(C) * S + kCrcThreads - 1) / kCrcThreads);
+  if (dst == nullptr)
+    crc_chunks_kernel<false><<<blocks, kCrcThreads, 0, as_stream(stream)>>>(
+        d, static_cast<const uint32_t*>(tables), static_cast<uint32_t*>(crcs), nullptr, C, W,
+        S, h, vec);
+  else
+    crc_chunks_kernel<true><<<blocks, kCrcThreads, 0, as_stream(stream)>>>(
+        d, static_cast<const uint32_t*>(tables), static_cast<uint32_t*>(crcs),
+        static_cast<uint32_t*>(dst), C, W, S, h, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -783,29 +886,21 @@ int dsa_batch_copy_pages(const void* src_pool, void* dst_pool,
   return static_cast<int>(cudaGetLastError());
 }
 
-int dsa_crc32_chunk_states(const void* data, const void* tables, void* states,
-                           int C, long long W, void* stream) {
-  const int blocks = (C + kCrcThreads - 1) / kCrcThreads;
-  crc_chunks_kernel<false><<<blocks, kCrcThreads, 0, as_stream(stream)>>>(
-      static_cast<const uint32_t*>(data), static_cast<const uint32_t*>(tables),
-      static_cast<uint32_t*>(states), nullptr, C, W);
-  return static_cast<int>(cudaGetLastError());
+int dsa_crc32_chunk_states(const void* data, const void* tables, void* crcs, int C,
+                           long long W, void* stream) {
+  return static_cast<int>(launch_crc_chunks(data, tables, crcs, nullptr, C, W, stream));
 }
 
-int dsa_copy_crc_words(const void* data, const void* tables, void* states,
-                       void* dst, int C, long long W, void* stream) {
-  const int blocks = (C + kCrcThreads - 1) / kCrcThreads;
-  crc_chunks_kernel<true><<<blocks, kCrcThreads, 0, as_stream(stream)>>>(
-      static_cast<const uint32_t*>(data), static_cast<const uint32_t*>(tables),
-      static_cast<uint32_t*>(states), static_cast<uint32_t*>(dst), C, W);
-  return static_cast<int>(cudaGetLastError());
+int dsa_copy_crc_words(const void* data, const void* tables, void* crcs, void* dst, int C,
+                       long long W, void* stream) {
+  return static_cast<int>(launch_crc_chunks(data, tables, crcs, dst, C, W, stream));
 }
 
-int dsa_gf2_fold(const void* states, const void* mat, void* out, int C,
+int dsa_crc_fold(const void* crcs, const void* base_mat, void* out, int G, int S,
                  void* stream) {
-  gf2_fold_kernel<<<1, 1, 0, as_stream(stream)>>>(
-      static_cast<const uint32_t*>(states), static_cast<const uint32_t*>(mat),
-      static_cast<uint32_t*>(out), C);
+  crc_fold_kernel<<<G, kFoldLanes, 0, as_stream(stream)>>>(
+      static_cast<const uint32_t*>(crcs), static_cast<const uint32_t*>(base_mat),
+      static_cast<uint32_t*>(out), G, S);
   return static_cast<int>(cudaGetLastError());
 }
 

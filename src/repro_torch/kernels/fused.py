@@ -7,9 +7,10 @@ launches and stream the data twice.
   copy_crc_words     memcpy + CRC32: every chunk is copied to the
                      destination AND folded into the chunk CRC states in one
                      read pass.  On a CUDA tensor it launches
-                     ``crc_chunks_kernel<true>`` (csrc/dsa_kernels.cu),
-                     which replaces the JAX package's Pallas
-                     ``copy_crc_words`` (repro/kernels/fused.py:56).
+                     ``crc_chunks_kernel<true>`` (csrc/dsa_kernels.cu) over
+                     the sub-chunks of crc32.py, and their fold where a
+                     chunk has more than one; it replaces the JAX package's
+                     Pallas ``copy_crc_words`` (repro/kernels/fused.py:56).
   fill_verify_words  fill + compare_pattern: the pattern is stored and read
                      back from memory for the (equal?, first | -1) pair, in
                      one launch.  On CUDA it launches ``fill_verify_kernel``,
@@ -27,7 +28,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.compare import MAX_WORDS, compare_pattern_words_plain
-from repro_torch.kernels.crc32 import _check_tables, crc32_chunk_states_plain
+from repro_torch.kernels.crc32 import (_check_tables, _launch_chunk_crcs,
+                                       crc32_chunk_states_plain)
 from repro_torch.kernels.fill import fill_words_plain, pattern_quad, pattern_words
 
 
@@ -46,14 +48,8 @@ def copy_crc_words(data: torch.Tensor,
     _build.same_device("copy_crc_words", data, tables)
     if data.device.type == "cpu":
         return copy_crc_words_plain(data, tables)
-    C, W = data.shape
-    states = torch.empty(C, dtype=torch.uint32, device=data.device)
     dst = torch.empty_like(data)
-    if C:
-        _build.launch("dsa_copy_crc_words", data.data_ptr(), tables.data_ptr(),
-                      states.data_ptr(), dst.data_ptr(), C, W, _build.stream(data))
-        _build.count(copy_crc_words)
-    return states, dst
+    return _launch_chunk_crcs("dsa_copy_crc_words", copy_crc_words, data, tables, dst), dst
 
 
 copy_crc_words.launches = 0

@@ -289,7 +289,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 
     monkeypatch.setattr(_build, "library", no_library)
     counts = [f.launches for f in (tmc.memcpy_words, tbc.batch_copy_pages,
-                                   tcrc.crc32_chunk_states, tcrc.combine_chunk_crcs,
+                                   tcrc.crc32_chunk_states, tcrc.fold_crcs,
                                    tfused.copy_crc_words)]
     x = torch.arange(4096, dtype=torch.float32)
     tops.memcpy(x)
@@ -297,7 +297,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     tops.copy_crc(x)
     tops.batch_copy(x.view(16, 256), torch.zeros(16, 256), torch.tensor([1]), torch.tensor([2]))
     assert counts == [f.launches for f in (tmc.memcpy_words, tbc.batch_copy_pages,
-                                           tcrc.crc32_chunk_states, tcrc.combine_chunk_crcs,
+                                           tcrc.crc32_chunk_states, tcrc.fold_crcs,
                                            tfused.copy_crc_words)]
 
 
