@@ -20,11 +20,16 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      paths run, and 1 GiB) against its plain version or zlib per chunk, and
      the fold against both plain versions (C = 1 .. 256, S = 1, 33, 4096);
   2b. each slice-2 kernel the same way: fills with 1-, 2- and 4-word
-     patterns, compares with the difference at word 0, in the middle, at
-     the last word and nowhere, delta records with 0, a few, exactly cap and
-     cap + 1 differences (word 0 among them) and an overflow, applies of
-     records with duplicates, -1 pads and offsets past the end, DIF with a
-     corrupted block;
+     patterns over 1-4 PE spans, into outputs 0-3 words off 16 bytes, at
+     counts either side of one and two CTAs of the fill's grid; compares
+     with the difference at word 0, in the middle, at the last word and
+     nowhere; delta records with 0, a few, exactly cap and cap + 1
+     differences (word 0 among them) and an overflow; applies of every
+     record kind (``delta_kinds``: the ascending prefix delta_record_words
+     writes, and duplicates, pads first or among the entries, offsets past
+     the end, descending, all pads, cap 0, ...) at 1000 and 4099 words and
+     at 1 GiB (the ring route) and one word less (the store route), both
+     the fast and the general path of each; DIF with a corrupted block;
   3. the slice-1 main path: ``make_device(n_instances=2,
      policy="least_loaded")`` runs memcpy, crc32 with ``.then``, a promise
      fence, an 8-descriptor fused batch, copy_crc, batch_copy into a
@@ -77,9 +82,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
   5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
-     ``scaled_dot_product_attention``, also at hd 128 and 256); the save
-     and restore seconds of phase 4c; ``ops.crc32`` end to end at 4 KiB ..
-     1 GiB;
+     ``scaled_dot_product_attention``, also at hd 128 and 256; fill against
+     ``Tensor.fill_`` interleaved call by call); the device work of one
+     delta apply on the leaf (``torch.profiler``); the save and restore
+     seconds of phase 4c; ``ops.crc32`` end to end at 4 KiB .. 1 GiB;
   6. the launch counts of each slice's main path, set to 0 just before it
      and read just after: every kernel of the path must have launched; and
      of one ``ops.crc32`` at 4 KiB .. 1 GiB: one CRC launch, plus the
@@ -333,9 +339,7 @@ def kernels_vs_plain(dev, gen, errs: dict, big_words: int = MiB // 4,
     # memcpy: ragged counts, unaligned starts (the scalar path), PE spans; and
     # on the bulk ring, spans one word either side of its threshold (a full
     # ring per SM) and of a chunk boundary past it, a ragged last span
-    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else 132)
-    T, chunk = sms * COPY_STAGES * COPY_CHUNK_WORDS, COPY_CHUNK_WORDS
+    T, chunk = ring_bytes(dev) // 4, COPY_CHUNK_WORDS
     ring_sizes = (T - 1, T + 1, T + chunk - 1, T + chunk + 1, 4 * T - 1, 4 * T + chunk + 3)
     copy_base = rand_words(gen, 4 * T + chunk + 8, dev)
     for n in sorted({1, 5, 4099, min(65539, big_words), big_words, *ring_sizes}):
@@ -466,8 +470,67 @@ def record_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
+def ring_bytes(dev) -> int:
+    """Bytes from which a 16-byte aligned copy takes the TMA ring of
+    memcpy_words and delta_apply_words (one ring per SM)."""
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    return sms * COPY_STAGES * COPY_CHUNK_WORDS * 4
+
+
+def delta_kinds(gen, src: torch.Tensor, k: int) -> dict:
+    """name -> (offsets, data): the kinds of record ``delta_apply_words``
+    must take, around the record ``delta_record_words`` writes for ``k``
+    changed words of ``src`` (an ascending prefix and its -1 pads: the
+    kernel's fast path); duplicates, pads before or among the entries,
+    offsets past the end and a descending record take its general path."""
+    from repro_torch.kernels import delta_create
+
+    n, dev = src.numel(), src.device
+    pos = torch.randperm(n, generator=gen, device=gen.device)[:k].to(dev)
+    changed = src.clone()
+    changed.view(torch.int32)[pos] ^= 0x10001
+    off, data, _, _ = delta_create.delta_record_words(changed, src, 2 * k)
+    asc, dat = off[:k], data[:k]
+
+    def pads(m):
+        return torch.full((m,), -1, dtype=torch.int32, device=dev)
+
+    def words(m):
+        return rand_words(gen, m, dev)
+
+    dup = asc.clone()
+    dup[1::5] = asc[0::5][:dup[1::5].numel()]
+    mixed = asc.clone()
+    mixed[1::3] = -1
+    past = asc.clone()
+    past[2::4] = n + torch.arange(past[2::4].numel(), dtype=torch.int32, device=dev)
+    far = torch.tensor([0, n // 2, n - 1, -1], dtype=torch.int32, device=dev)
+    one = torch.zeros(4, dtype=torch.int32, device=dev)
+    one[1:] = -1
+    last = one.clone()
+    last[0] = n - 1
+    return {
+        "ascending prefix and pads (delta_record_words)": (off, data),
+        "cap = valid entries": (asc, dat),
+        "one entry at word 0": (one, words(4)),
+        "one entry at word n-1": (last, words(4)),
+        "three entries far apart": (far, words(4)),
+        "all pads": (pads(k), words(k)),
+        "cap 0": (pads(0), words(0)),
+        "past the end after the entries": (torch.cat([asc, pads(1) + 1 + n]),
+                                           torch.cat([dat, words(1)])),
+        "duplicates": (dup, dat),
+        "pads first": (torch.cat([pads(k // 4 + 1), asc]), torch.cat([words(k // 4 + 1), dat])),
+        "pads among the entries": (mixed, dat),
+        "offsets past the end among the entries": (past, dat),
+        "descending": (asc.flip(0), dat.view(torch.int32).flip(0).view(torch.uint32)),
+    }
+
+
 @phase("2b slice-2 kernels against their plain versions")
-def kernels_vs_plain_2(dev, gen, errs: dict, big_words: int = MiB // 4) -> None:
+def kernels_vs_plain_2(dev, gen, errs: dict, big_words: int = MiB // 4,
+                       delta_big: int = GiB) -> None:
     from repro_torch.kernels import compare, delta_apply, delta_create, dif, fill, ops, ref
 
     def note(name, err):
@@ -475,12 +538,23 @@ def kernels_vs_plain_2(dev, gen, errs: dict, big_words: int = MiB // 4) -> None:
         check(err == 0, f"{name}: kernel disagrees with its plain version (max err {err})")
 
     counts = sorted({1, 3, 5, 257, 1000, 4099, min(65539, big_words), big_words})
-    # fill: ragged counts, the three pattern widths, PE spans
-    for n in counts:
+    # fill: ragged counts, the three pattern widths, PE spans 1-4, outputs
+    # 1-3 words off 16 bytes (the word-wise route), and counts either side
+    # of one and two CTAs of the one-shot grid (FILL_THREADS x
+    # FILL_PER_THREAD uint4s, as many words when unaligned)
+    cta = fill.FILL_THREADS * fill.FILL_PER_THREAD
+    fill_counts = sorted({*counts, cta - 1, cta + 1, 4 * cta - 1, 4 * cta, 4 * cta + 1,
+                          8 * cta + 3})
+    fill_base = torch.empty(max(fill_counts) + 4, dtype=torch.uint32, device=dev)
+    for n in fill_counts:
         for pat in ((0xDEADBEEF,), (1, 0x80000001), (7, 8, 0xFFFFFFFF, 0)):
-            for n_pe in (1, 3):
-                got = fill.fill_words(n, pat, n_pe=n_pe, device=dev)
-                note("fill_words", max_abs_err(got, fill.fill_words_plain(n, pat, device=dev)))
+            want = fill.fill_words_plain(n, pat, device=dev)
+            for n_pe in (1, 2, 3, 4):
+                note("fill_words", max_abs_err(fill.fill_words(n, pat, n_pe=n_pe, device=dev),
+                                               want))
+                for start in (1, 2, 3):
+                    got = fill.fill_words_into(fill_base[start:start + n], pat, n_pe=n_pe)
+                    note("fill_words", max_abs_err(got, want))
     # compare: no difference, at word 0, in the middle, at the last word;
     # an unaligned view (scalar path)
     base = rand_words(gen, big_words + 8, dev)
@@ -533,19 +607,40 @@ def kernels_vs_plain_2(dev, gen, errs: dict, big_words: int = MiB // 4) -> None:
             out, delta_apply.delta_apply_words_plain(ref_words, off, data)))
         check(same_bits(out, ref.delta_apply_ref(ref_words, off, data)),
               f"delta apply of a hand-made record, cap {cap}")
-    # compare, delta create and delta apply read nothing back to the host:
-    # PyTorch raises on any synchronizing call in this mode
+    # apply: every record kind on both paths of the kernels, at two small
+    # sizes (the store route) and at 1 GiB (the ring route; one word less
+    # takes the store route)
+    paths = set()
+    for n, k in ((1000, 37), (4099, 300), (delta_big // 4, delta_big // 1024),
+                 (delta_big // 4 - 1, delta_big // 1024)):
+        src = base[:n] if n <= base.numel() else rand_words(gen, n, dev)
+        route = "ring" if n % 4 == 0 and 4 * n >= ring_bytes(dev) else "store"
+        for kind, (off, data) in delta_kinds(gen, src, k).items():
+            out = delta_apply.delta_apply_words(src, off, data)
+            note("delta_apply_words", max_abs_err(
+                out, delta_apply.delta_apply_words_plain(src, off, data)))
+            hi, prefix, _ = delta_apply.delta_scan_plain(off.cpu(), n)
+            paths.add((route, "fast" if prefix else "general"))
+            print(f"  delta_apply_words, {n} words, {kind}: cap {off.numel()}, hi {hi}, "
+                  f"{route} route, {'fast' if prefix else 'general'} path, bit-exact")
+        del src
+    check(len(paths) == 4, f"the record kinds took only {sorted(paths)}")
+    # compare, delta create and delta apply (on both of its routes) read
+    # nothing back to the host: PyTorch raises on any synchronizing call in
+    # this mode
     if dev.type == "cuda":
-        src = base[:big_words]
-        changed = src.clone()
-        changed.view(torch.int32)[::997] += 1
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            ops.compare(src, changed)
-            o, d, _, _ = ops.delta_create(changed, src, cap=4096)
-            ops.delta_apply(src, o, d)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        ring_src = rand_words(gen, ring_bytes(dev) // 4, dev)
+        for src in (base[:big_words], ring_src):
+            changed = src.clone()
+            changed.view(torch.int32)[::997] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ops.compare(src, changed)
+                o, d, _, _ = ops.delta_create(changed, src, cap=src.numel() // 500)
+                ops.delta_apply(src, o, d)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        del ring_src
     # the ops layer over dtypes: fill_like, compare, delta round trip
     for dtype, shape in ((torch.float32, (513, 130)), (torch.bfloat16, (1000, 6)),
                          (torch.uint32, (big_words,))):
@@ -1495,6 +1590,50 @@ def cold_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def interleaved_ms(fns: dict, reps: int, flush: torch.Tensor) -> dict:
+    """Median device time of one call of each function of ``fns`` (name ->
+    function), their calls interleaved: round r calls each once, in turns
+    forward and backward, with the L2 flushed before each call and each
+    call between its own pair of CUDA events.  A spin parks the stream
+    before each round, as in ``cold_ms``.  Two designs compared this way
+    share the card's clock and neighbours call by call."""
+    from repro_torch.calibrate import HOST_CALL_S, SPIN_HZ
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    names = list(fns)
+    pairs = {name: [] for name in names}
+    for r in range(reps):
+        torch.cuda._sleep(int(len(names) * 2 * HOST_CALL_S * SPIN_HZ))
+        for name in (names if r % 2 == 0 else names[::-1]):
+            flush.max()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fns[name]()
+            e1.record()
+            pairs[name].append((e0, e1))
+    torch.cuda.synchronize()
+    return {name: statistics.median(a.elapsed_time(b) for a, b in pairs[name])
+            for name in names}
+
+
+def device_work(fn) -> list:
+    """(name, device µs) of each kernel and memset that one call of ``fn``
+    put on the card, in order, from ``torch.profiler``'s trace of the
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us())
+            for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def mem_bps() -> float:
     name = torch.cuda.get_device_name(0)
     return next((bps for word, bps in MEM_BPS if word in name), H100_SXM_MEM_BPS)
@@ -1622,10 +1761,12 @@ def times_2(dev, gen, shapes, big: int = GiB) -> list:
     n = big // 4
     pat = (0x5A5A5A5A,)
     dst32 = torch.empty(n, dtype=torch.int32, device=dev)
-    row("fill_words", "[268435456] u32 (1 GiB)", big,
-        cold_ms(lambda: fill.fill_words(n, pat, device=dev), 5, flush),
+    # the kernel and fill_ within 3 % of each other: interleaved call by call
+    ms = interleaved_ms({"fill_words": lambda: fill.fill_words(n, pat, device=dev),
+                         "Tensor.fill_": lambda: dst32.fill_(int32_bits(pat[0]))}, 30, flush)
+    row("fill_words", "[268435456] u32 (1 GiB)", big, ms["fill_words"],
         cold_ms(lambda: fill.fill_words_plain(n, pat, device=dev), 5, flush),
-        cold_ms(lambda: dst32.fill_(int32_bits(pat[0])), 5, flush), "Tensor.fill_")
+        ms["Tensor.fill_"], "Tensor.fill_ (interleaved with the kernel, 30 calls each)")
     for nbytes in (4 * KiB, MiB, 64 * MiB):
         print(f"  fill_words at {nbytes} B (cold L2): "
               f"{cold_ms(lambda: fill.fill_words(nbytes // 4, pat, device=dev), 50, flush):.4f} ms")
@@ -1653,11 +1794,23 @@ def times_2(dev, gen, shapes, big: int = GiB) -> list:
         cold_ms(lambda: delta_create.delta_record_words_plain(new_w, lw, cap), 5, flush),
         None)
     # apply reads the offsets, and the data word of each valid entry only
-    n_valid = int(((offsets >= 0) & (offsets < lw.numel())).sum())
+    valid = (offsets >= 0) & (offsets < lw.numel())
+    n_valid = int(valid.sum())
+    lw32, vidx, vwords = lw.view(torch.int32), offsets[valid].long(), data.view(torch.int32)[valid]
     row("delta_apply_words", shape, 2 * nb + 4 * cap + 4 * n_valid,
-        cold_ms(lambda: delta_apply.delta_apply_words(lw, offsets, data), 5, flush),
+        cold_ms(lambda: delta_apply.delta_apply_words(lw, offsets, data), 20, flush),
         cold_ms(lambda: delta_apply.delta_apply_words_plain(lw, offsets, data), 5, flush),
-        None)
+        cold_ms(lambda: lw32.index_put((vidx,), vwords), 20, flush),
+        "Tensor.index_put of the valid entries through int32 views (the entries "
+        "filtered before timing; unique offsets, so the same result)")
+    check(torch.equal(lw32.index_put((vidx,), vwords),
+                      delta_apply.delta_apply_words(lw, offsets, data).view(torch.int32)),
+          "index_put of the leaf's record differs from delta_apply_words")
+    flush.max()
+    work = device_work(lambda: delta_apply.delta_apply_words(lw, offsets, data))
+    print(f"  delta_apply_words on the leaf: {n_valid} valid entries of {cap}; device work "
+          f"of one call after an L2 flush (torch.profiler, µs): "
+          + "; ".join(f"{name.split('(')[0]} {us:.1f}" for name, us in work))
     # DIF over 1 MiB of 512-byte blocks: the CRC kernel with one chunk a block;
     # its bound reads the data and writes the framed blocks once each
     from repro_torch.kernels import crc32, dif, ops

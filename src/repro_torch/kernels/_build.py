@@ -52,7 +52,7 @@ _SIGNATURES = {
     "dsa_dualcast_words": (_P, _P, _P, _LL, _P),
     "dsa_delta_count": (_P, _P, _LL, _P, _P, _I, _P),
     "dsa_delta_write": (_P, _LL, _P, _P, _P, _I, _LL, _P, _P, _P, _P, _P),
-    "dsa_delta_apply_words": (_P, _P, _LL, _P, _P, _LL, _P, _P),
+    "dsa_delta_apply_words": (_P, _P, _LL, _P, _P, _LL, _P, _P, _P),
     "dsa_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "dsa_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
 }

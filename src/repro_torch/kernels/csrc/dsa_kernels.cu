@@ -335,26 +335,50 @@ crc_fold_kernel(const uint32_t* __restrict__ crcs, const uint32_t* __restrict__ 
 // Design: the <= 4 pattern words arrive by value as one uint4 kernel argument
 // (a pattern of 1 or 2 words is repeated to 4), so a fill needs no
 // host-to-device copy.  p divides 4 and every span starts on a multiple of 4
-// words, so the uint4 is position-independent on a 16-byte-aligned output:
-// each thread stores it whole, a warp writes 512 contiguous bytes per store.
-// The ragged tail takes word i % 4 of the pattern.  n_pe spans as in memcpy.
-__global__ void fill_words_kernel(uint32_t* __restrict__ dst, long long n,
-                                  long long span, uint4 pat, bool vec) {
+// words, so the uint4 is position-independent on a 16-byte-aligned output.
+// A one-shot grid with no stride loop: CTA b of a span writes its uint4s
+// [b kFillPerCta, (b + 1) kFillPerCta), each thread kFillPerThread of them
+// spaced by blockDim, so a warp writes 512 contiguous bytes a store.  Of the
+// designs tools/fill_variants.py times (the grid-stride loop of 132 x 8 CTAs
+// this replaces, bulk stores of a pattern tile from shared memory, one-shot
+// grids of 1-8 stores a thread, 128 or 256 threads) this one was the
+// fastest at 1 GiB, level with Tensor.fill_ (97.7 % of the bound; the loop
+// 94.3 %, the bulk stores 95.4-96.2 %), and no slower than the loop at
+// 4 KiB, 1 MiB and 64 MiB.  A fill is a stream of stores: what counts is
+// that every SM keeps enough of them in flight, which a one-shot grid of
+// short-lived CTAs does without a loop's bookkeeping.  The ragged tail (1-3 words)
+// takes word i % 4 of the pattern from the first threads of CTA 0 of its
+// span; an unaligned output takes the same grid over words.  n_pe spans
+// (blockIdx.y) as in memcpy.
+constexpr int kFillThreads = 128;
+constexpr int kFillPerThread = 2;
+constexpr long long kFillPerCta = kFillThreads * kFillPerThread;
+
+__global__ void __launch_bounds__(kFillThreads)
+fill_words_kernel(uint32_t* __restrict__ dst, long long n, long long span, uint4 pat,
+                  bool vec) {
   const long long begin = static_cast<long long>(blockIdx.y) * span;
   const long long end = min(begin + span, n);
   if (begin >= end) return;
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long done = 0;
+  const long long base = static_cast<long long>(blockIdx.x) * kFillPerCta + threadIdx.x;
+  const uint32_t w[4] = {pat.x, pat.y, pat.z, pat.w};
   if (vec) {
     const long long nv = (end - begin) / 4;
     uint4* d4 = reinterpret_cast<uint4*>(dst + begin);
-    for (long long i = tid; i < nv; i += stride) d4[i] = pat;
-    done = nv * 4;
+#pragma unroll
+    for (int u = 0; u < kFillPerThread; ++u) {
+      const long long i = base + u * kFillThreads;
+      if (i < nv) d4[i] = pat;
+    }
+    const long long i = begin + nv * 4 + threadIdx.x;
+    if (blockIdx.x == 0 && i < end) dst[i] = w[i & 3];
+    return;
   }
-  const uint32_t w[4] = {pat.x, pat.y, pat.z, pat.w};
-  for (long long i = begin + done + tid; i < end; i += stride) dst[i] = w[i & 3];
+#pragma unroll
+  for (int u = 0; u < kFillPerThread; ++u) {
+    const long long i = begin + base + u * kFillThreads;
+    if (i < end) dst[i] = w[i & 3];
+  }
 }
 
 // ------------------------------------------------------------------ compare_words
@@ -727,69 +751,286 @@ __global__ void delta_write_kernel(const uint32_t* __restrict__ src,
 
 // ------------------------------------------------------------------ delta_apply_words
 // Replaces kernels/delta_apply.py delta_apply_words / _delta_apply_kernel.
-// Bound: bytes, ref read and out written once plus the record read.
+// Bound: bytes, ref read and out written once, the offsets read once and
+// the data word of each valid entry read once.
 // Semantics: out = ref, then the entries in record order, skipping
 // off < 0 (pads) and off >= n; of entries naming one word the last wins.
 // The Pallas kernel walked the record serially on one core.  CTAs run in no
-// order, so duplicates take an explicit rule that stays O(cap) for a
-// checkpoint-sized record (millions of entries), where batch_copy's scan of
-// later entries would be O(cap^2).  The rule uses the output word itself as
-// the claim slot, so it needs no scratch of the buffer's size:
-//   1. out = ref (the copy kernel);
-//   2. every valid entry zeroes out[off];
-//   3. every valid entry i does atomicMax(out[off], i + 1): the word now
-//      names its last writer;
-//   4. entry i is the winner iff out[off] == i + 1 (a byte in win[], since
-//      a winner's store must not race a loser's read);
-//   5. winners store data[i].
-// Each of 2-5 is one grid-stride pass over the record; offsets on the card
-// are never read back to the host.
-__global__ void delta_zero_kernel(uint32_t* __restrict__ out, long long n,
-                                  const int32_t* __restrict__ offsets,
-                                  long long cap) {
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < cap; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int32_t off = offsets[i];
-    if (off >= 0 && off < n) out[off] = 0;
+// order here, so the order matters only where two valid entries name one
+// word.  A record from delta_record_words never has such a pair: its valid
+// entries are an ascending prefix of the record, the -1 pads after them.
+// One scan of the record (16-byte loads of the offsets) finds hi, one past
+// the last valid entry (atomicMax), and whether some adjacent pair breaks
+// the ascending-prefix rule: valid(i+1) and not (valid(i) and off[i] <
+// off[i+1]) (atomicOr).  When none does, no two valid entries name one word
+// and their stores may land in any order: the fast path.  Otherwise the
+// general path runs over [0, hi) only, the output word itself as the claim
+// slot (no scratch of the buffer's size), a grid barrier between steps:
+// every valid entry zeroes out[off]; every valid entry i does
+// atomicMax(out[off], i + 1), so the word names its last writer; entry i is
+// the winner iff out[off] == i + 1 (a byte in win[], since a winner's store
+// must not race a loser's read); winners store data[i].  It overwrites
+// whatever the fast path's stores left in the words it names.
+// Two routes, by the copy they ride on (dsa_delta_apply_words):
+// - the ring (spans of memcpy_bulk_kernel's size, 16-byte aligned, n a
+//   multiple of 4): the scan (delta_scan_kernel) also writes first[c], the
+//   first entry of each 32 KiB chunk c of the buffer; then
+//   delta_copy_patch_kernel copies through a ring of TMA bulk copies as
+//   memcpy_bulk_kernel does, and patches each chunk's entries into the
+//   chunk in shared memory before the bulk store writes it.  Scattered
+//   4-byte stores into device memory would each cost a read-modify-write of
+//   a 32-byte sector (27 us for a checkpoint leaf's 335 k entries on an H100,
+//   tools/delta_apply_variants.py); patched in shared memory they cost
+//   nothing in device memory.  On the general path it copies unpatched,
+//   then runs the claim rule after a grid barrier.
+// - otherwise: launch_memcpy, then delta_apply_kernel, whose scan stores the
+//   valid entries as it finds them, then a grid barrier and, on the general
+//   path, the claim rule.
+// Both kernels with a barrier are cooperative launches of co-resident CTAs.
+// Scratch: state[0] = hi, state[1] = the broken-pair flag, state[2] = the
+// barriers' arrivals, state[4..5] = the chunk bounds claimed (64-bit; at
+// most one per chunk on an ascending prefix, more marks the record
+// broken), all zeroed by one memset; then first[] (one word a chunk).  Offsets and the flag
+// stay on the card: nothing is read back to the host.
+constexpr int kDeltaThreads = 256;
+constexpr long long kChunkWords = kCopyChunk / 4;
+
+__device__ __forceinline__ bool delta_valid(int32_t off, long long n) {
+  return off >= 0 && off < n;
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Every CTA of the (co-resident) grid arrives; the k-th barrier of a launch
+// passes when the count reaches k * gridDim.x.
+__device__ void grid_barrier(unsigned* arrived, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(arrived, 1u);
+    while (load_acquire(arrived) < target) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The scan, over the whole grid, four entries a thread a step (a warp's
+// lanes on 32 neighbouring groups); o[4] is the next group's first entry,
+// for the pair that straddles two groups.  STORE: store every valid entry.
+// BOUNDS: for each ascending valid pair, write first[c] = i + 1 for the
+// chunks c whose first word lies in (off[i], off[i+1]].  On an ascending
+// prefix that is one write per chunk at most, counted (one 64-bit atomicAdd
+// a warp a step) so that a record with more bounds is marked broken before
+// it writes them.
+template <bool STORE, bool BOUNDS>
+__device__ void delta_scan(uint32_t* out, long long n, const int32_t* offsets,
+                           const uint32_t* data, long long cap, bool vec,
+                           unsigned* first, unsigned* state) {
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const int lane = threadIdx.x % 32;
+  const unsigned long long n_chunks = (n + kChunkWords - 1) / kChunkWords;
+  unsigned long long* bounds_used = reinterpret_cast<unsigned long long*>(state + 4);
+  unsigned hi = 0;
+  bool broken = false;
+  const long long groups = (cap + 3) / 4;
+  for (long long g = tid; g - lane < groups; g += stride) {
+    const long long i0 = g * 4;
+    int32_t o[5] = {-1, -1, -1, -1, -1};
+    unsigned bounds = 0;
+    if (g < groups) {
+      if (vec && i0 + 4 <= cap) {
+        const int4 v = reinterpret_cast<const int4*>(offsets)[g];
+        o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = i0 + k < cap ? offsets[i0 + k] : -1;
+      }
+      o[4] = i0 + 4 < cap ? offsets[i0 + 4] : -1;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool v = delta_valid(o[k], n);
+        if (v) {
+          if (STORE) out[o[k]] = data[i0 + k];
+          hi = static_cast<unsigned>(i0 + k + 1);
+        }
+        if (!delta_valid(o[k + 1], n)) continue;
+        if (!(v && o[k] < o[k + 1]))
+          broken = true;
+        else if (BOUNDS)
+          bounds += static_cast<unsigned>(o[k + 1] / kChunkWords - o[k] / kChunkWords);
+      }
+    }
+    if (BOUNDS) {
+      const unsigned total = __reduce_add_sync(0xFFFFFFFFu, bounds);
+      if (total) {
+        unsigned long long used = 0;
+        if (lane == 0) used = atomicAdd(bounds_used, static_cast<unsigned long long>(total));
+        used = __shfl_sync(0xFFFFFFFFu, used, 0);
+        if (used + total > n_chunks) {
+          broken = true;  // more bounds than chunks: not an ascending prefix
+        } else if (bounds) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (!delta_valid(o[k], n) || !delta_valid(o[k + 1], n) || o[k] >= o[k + 1]) continue;
+            for (long long c = o[k] / kChunkWords + 1; c <= o[k + 1] / kChunkWords; ++c)
+              first[c] = static_cast<unsigned>(i0 + k + 1);
+          }
+        }
+      }
+    }
+  }
+  hi = __reduce_max_sync(0xFFFFFFFFu, hi);
+  broken = __any_sync(0xFFFFFFFFu, broken);
+  if (lane == 0) {
+    if (hi) atomicMax(&state[0], hi);
+    if (broken) atomicOr(&state[1], 1u);
   }
 }
 
-__global__ void delta_claim_kernel(uint32_t* __restrict__ out, long long n,
-                                   const int32_t* __restrict__ offsets,
-                                   long long cap) {
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < cap; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+// The general path over [0, hi): every thread of a co-resident grid calls it
+// after the launch's first barrier; it returns at once on the fast path.
+__device__ void delta_claim_rule(uint32_t* out, long long n, const int32_t* offsets,
+                                 const uint32_t* data, uint8_t* win, unsigned* state) {
+  if (load_acquire(&state[1]) == 0) return;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long end = load_acquire(&state[0]);
+  for (long long i = tid; i < end; i += stride) {
     const int32_t off = offsets[i];
-    if (off >= 0 && off < n)
-      atomicMax(reinterpret_cast<unsigned*>(out) + off,
-                static_cast<unsigned>(i + 1));
+    if (delta_valid(off, n)) out[off] = 0;
   }
-}
-
-__global__ void delta_mark_kernel(const uint32_t* __restrict__ out,
-                                  long long n,
-                                  const int32_t* __restrict__ offsets,
-                                  long long cap, uint8_t* __restrict__ win) {
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < cap; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+  grid_barrier(&state[2], 2 * gridDim.x);
+  for (long long i = tid; i < end; i += stride) {
     const int32_t off = offsets[i];
-    win[i] = off >= 0 && off < n && out[off] == static_cast<uint32_t>(i + 1);
+    if (delta_valid(off, n)) atomicMax(out + off, static_cast<unsigned>(i + 1));
   }
-}
-
-__global__ void delta_store_kernel(uint32_t* __restrict__ out,
-                                   const int32_t* __restrict__ offsets,
-                                   const uint32_t* __restrict__ data,
-                                   long long cap,
-                                   const uint8_t* __restrict__ win) {
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < cap; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+  grid_barrier(&state[2], 3 * gridDim.x);
+  for (long long i = tid; i < end; i += stride) {
+    const int32_t off = offsets[i];
+    win[i] = delta_valid(off, n) && __ldcg(out + off) == static_cast<uint32_t>(i + 1);
+  }
+  grid_barrier(&state[2], 4 * gridDim.x);
+  for (long long i = tid; i < end; i += stride)
     if (win[i]) out[offsets[i]] = data[i];
+}
+
+// The route beside launch_memcpy: the scan with its stores, then the barrier
+// and the claim rule.
+__global__ void __launch_bounds__(kDeltaThreads)
+delta_apply_kernel(uint32_t* __restrict__ out, long long n,
+                   const int32_t* __restrict__ offsets,
+                   const uint32_t* __restrict__ data, long long cap, bool vec,
+                   uint8_t* __restrict__ win, unsigned* __restrict__ state) {
+  delta_scan<true, false>(out, n, offsets, data, cap, vec, nullptr, state);
+  grid_barrier(&state[2], gridDim.x);
+  delta_claim_rule(out, n, offsets, data, win, state);
+}
+
+// The ring route's scan: hi, the flag and the chunk bounds; no stores.
+__global__ void __launch_bounds__(kDeltaThreads)
+delta_scan_kernel(long long n, const int32_t* __restrict__ offsets, long long cap, bool vec,
+                  unsigned* __restrict__ first, unsigned* __restrict__ state) {
+  delta_scan<false, true>(nullptr, n, offsets, nullptr, cap, vec, first, state);
+}
+
+// The ring route's copy: memcpy_bulk_kernel's ring (one CTA per SM, chunk
+// blockIdx.x + j gridDim.x, kCopyStages bulk copies in flight) with every
+// thread of the CTA patching the chunk's entries into shared memory between
+// its load and its store.  The entries of chunk c are [start(c),
+// start(c + 1)): start(c) = 0 up to the chunk of the first entry, hi after
+// the chunk of the last, first[c] between.  n is a multiple of 4 and both
+// buffers are 16-byte aligned.
+__global__ void __launch_bounds__(kDeltaThreads)
+delta_copy_patch_kernel(const uint32_t* __restrict__ ref, uint32_t* __restrict__ out,
+                        long long n, const int32_t* __restrict__ offsets,
+                        const uint32_t* __restrict__ data, const unsigned* __restrict__ first,
+                        uint8_t* __restrict__ win, unsigned* __restrict__ state) {
+  extern __shared__ __align__(128) uint8_t ring[];  // kCopyStages chunks, then the mbarriers
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kCopyStages * kCopyChunk);
+  const long long bytes = n * 4;
+  const long long n_chunks = (bytes + kCopyChunk - 1) / kCopyChunk;
+  const long long mine =
+      n_chunks > blockIdx.x ? (n_chunks - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  const unsigned hi = load_acquire(&state[0]);
+  const bool patch = hi > 0 && load_acquire(&state[1]) == 0;
+  const long long c_first = patch ? offsets[0] / kChunkWords : 0;
+  const long long c_last = patch ? offsets[hi - 1] / kChunkWords : -1;
+  auto start = [&](long long c) -> unsigned {
+    return c <= c_first ? 0u : c > c_last ? hi : __ldcg(first + c);
+  };
+  auto offset = [&](long long j) { return (blockIdx.x + j * gridDim.x) * kCopyChunk; };
+  auto size = [&](long long j) {
+    return static_cast<uint32_t>(min(static_cast<long long>(kCopyChunk), bytes - offset(j)));
+  };
+  const uint8_t* s = reinterpret_cast<const uint8_t*>(ref);
+  uint8_t* d = reinterpret_cast<uint8_t*>(out);
+  auto load = [&](long long j) {
+    const int st = static_cast<int>(j % kCopyStages);
+    const uint32_t bar = smem_addr(&full[st]);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(size(j))
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(ring + st * kCopyChunk)),
+        "l"(s + offset(j)), "r"(size(j)), "r"(bar)
+        : "memory");
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kCopyStages; ++st)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&full[st]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (long long j = 0; j < mine && j < kCopyStages; ++j) load(j);
   }
+  __syncthreads();
+  for (long long j = 0; j < mine; ++j) {
+    const int st = static_cast<int>(j % kCopyStages);
+    const uint32_t parity = static_cast<uint32_t>((j / kCopyStages) & 1);
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(smem_addr(&full[st])), "r"(parity)
+          : "memory");
+    }
+    if (patch) {
+      const long long c = blockIdx.x + j * gridDim.x;
+      uint32_t* chunk = reinterpret_cast<uint32_t*>(ring + st * kCopyChunk);
+      const unsigned e1 = start(c + 1);
+      for (unsigned e = start(c) + threadIdx.x; e < e1; e += blockDim.x)
+        chunk[offsets[e] - c * kChunkWords] = data[e];
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                       d + offset(j)),
+                   "r"(smem_addr(ring + st * kCopyChunk)), "r"(size(j))
+                   : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      // refill the stage of chunk j - 1 once its store has read it
+      if (j >= 1 && j - 1 + kCopyStages < mine) {
+        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        load(j - 1 + kCopyStages);
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  }
+  if (load_acquire(&state[1]) == 0) return;
+  grid_barrier(&state[2], gridDim.x);
+  delta_claim_rule(out, n, offsets, data, win, state);
 }
 
 inline unsigned grid_for(long long items, int threads) {
@@ -908,15 +1149,12 @@ int dsa_fill_words(void* dst, long long n_words, int n_pe, unsigned p0,
                    unsigned p1, unsigned p2, unsigned p3, void* stream) {
   long long span = (n_words + n_pe - 1) / n_pe;
   span = (span + 3) / 4 * 4;  // every span starts on a multiple of 4 words
-  const long long per_span_blocks =
-      ((span + 3) / 4 + kCopyThreads - 1) / kCopyThreads;
-  long long cap = kMaxCopyBlocks / n_pe;
-  if (cap < 1) cap = 1;
-  const unsigned bx =
-      static_cast<unsigned>(per_span_blocks < cap ? per_span_blocks : cap);
-  fill_words_kernel<<<dim3(bx, n_pe), kCopyThreads, 0, as_stream(stream)>>>(
-      static_cast<uint32_t*>(dst), n_words, span, make_uint4(p0, p1, p2, p3),
-      aligned16(dst));
+  const bool vec = aligned16(dst);
+  const long long items = vec ? span / 4 : span;  // uint4s, or words, a span
+  const long long bx = (items + kFillPerCta - 1) / kFillPerCta;
+  fill_words_kernel<<<dim3(static_cast<unsigned>(bx > 0 ? bx : 1), n_pe), kFillThreads, 0,
+                      as_stream(stream)>>>(static_cast<uint32_t*>(dst), n_words, span,
+                                           make_uint4(p0, p1, p2, p3), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1006,23 +1244,64 @@ int dsa_delta_write(const void* src, long long n_words, const void* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: n_words (written whole); win: cap bytes of scratch
+// out: n_words (written whole); win: cap bytes of scratch; scratch: 6 +
+// ceil(n_words / kChunkWords) uint32, 8-byte aligned.  cap < 2^31 (entry indices are 32-bit
+// on the card).
 int dsa_delta_apply_words(const void* ref, void* out, long long n_words,
                           const void* offsets, const void* data, long long cap,
-                          void* win, void* stream) {
+                          void* win, void* scratch, void* stream) {
   cudaStream_t s = as_stream(stream);
-  if (n_words > 0) launch_memcpy(ref, out, n_words, 1, s);
-  if (cap > 0) {
-    uint32_t* o = static_cast<uint32_t*>(out);
-    const int32_t* off = static_cast<const int32_t*>(offsets);
-    uint8_t* w = static_cast<uint8_t*>(win);
-    const unsigned blocks = grid_for(cap, kCopyThreads);
-    delta_zero_kernel<<<blocks, kCopyThreads, 0, s>>>(o, n_words, off, cap);
-    delta_claim_kernel<<<blocks, kCopyThreads, 0, s>>>(o, n_words, off, cap);
-    delta_mark_kernel<<<blocks, kCopyThreads, 0, s>>>(o, n_words, off, cap, w);
-    delta_store_kernel<<<blocks, kCopyThreads, 0, s>>>(
-        o, off, static_cast<const uint32_t*>(data), cap, w);
+  if (cap < 0 || cap > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (cap == 0 || n_words == 0) {
+    if (n_words > 0) launch_memcpy(ref, out, n_words, 1, s);
+    return static_cast<int>(cudaGetLastError());
   }
+  uint32_t* o = static_cast<uint32_t*>(out);
+  const int32_t* off = static_cast<const int32_t*>(offsets);
+  const uint32_t* d = static_cast<const uint32_t*>(data);
+  bool vec = aligned16(offsets);
+  uint8_t* w = static_cast<uint8_t*>(win);
+  unsigned* st = static_cast<unsigned*>(scratch);
+  unsigned* first = st + 6;
+  cudaError_t err = cudaMemsetAsync(st, 0, 6 * sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long need = ((cap + 3) / 4 + kDeltaThreads - 1) / kDeltaThreads;
+  if (aligned16(ref) && aligned16(out) && n_words % 4 == 0 &&
+      n_words * 4 >= static_cast<long long>(sms) * kCopyStages * kCopyChunk) {
+    // the ring route: the scan, then the patching copy, one CTA per SM
+    const long long most = static_cast<long long>(sms) * 8;
+    delta_scan_kernel<<<static_cast<unsigned>(need < most ? need : most), kDeltaThreads, 0,
+                        s>>>(n_words, off, cap, vec, first, st);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    constexpr int bytes = kCopyStages * (kCopyChunk + 8);
+    err = cudaFuncSetAttribute(delta_copy_patch_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const uint32_t* r = static_cast<const uint32_t*>(ref);
+    const unsigned* f = first;
+    void* args[] = {&r, &o, &n_words, &off, &d, &f, &w, &st};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(delta_copy_patch_kernel),
+                                      dim3(sms), dim3(kDeltaThreads), args, bytes, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // beside launch_memcpy: as many CTAs as fit on the card at once (the grid
+  // barrier needs every CTA resident; a cooperative launch guarantees it),
+  // at most one thread per group of four entries
+  launch_memcpy(ref, out, n_words, 1, s);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, delta_apply_kernel,
+                                                      kDeltaThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long most = static_cast<long long>(sms) * per_sm;
+  const unsigned grid = static_cast<unsigned>(need < most ? need : most);
+  void* args[] = {&o, &n_words, &off, &d, &cap, &vec, &w, &st};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(delta_apply_kernel),
+                                    dim3(grid), dim3(kDeltaThreads), args, 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
