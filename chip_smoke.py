@@ -63,7 +63,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      32, 64, 128 and 256 (each in bf16 with GQA groups of 1, 4 and 8),
      causal and not, a window with and without a meta prefix, Sq = Skv of
      1, 63, 64, 65, 77, 100, 129, 1000 and 2048 (the bf16 kernel's tile
-     edges), B = 2 with ragged lengths, windowed Sq > Skv cases with rows
+     edges), B = 2 with ragged lengths, B = 8 at tinyllama's 2048 tokens
+     (phase 4e(i)'s training shape), windowed Sq > Skv cases with rows
      that see no key or only the meta keys, bf16 and f32;
   3d. the slice-4 main path at a small size: tinyllama-1.1b.reduced() in f32
      served (6 requests of 16-77 tokens, 4 new tokens each) by the
@@ -79,6 +80,31 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      the weights in f32 within 1e-4, in bf16 within twice the bf16 rounding
      noise measured in the run (chunked bf16 against chunked f32); time to
      first token per prompt, decode tokens/s, seconds;
+  2e. flash attention's backward (the kernel forward, the chunked
+     recompute backward) against the chunked path's gradients on the card,
+     under ``torch.func.grad`` and ``.backward()``: f32 at [1, 128, 4, 32] /
+     [1, 128, 2, 32] within 2e-4, bf16 at tinyllama's [B, 2048, 32, 64] /
+     [B, 2048, 4, 64] with B = 1 and phase 4e(i)'s B = 8, within 4 bf16
+     ulps of each gradient's largest entry;
+  3e. the traced main path: under each wait policy a
+     ``make_device(trace=1.0)`` with a Sampler attached (``observe``) runs
+     copies (one behind an ``after=`` fence), CRCs with a ``.then`` chain,
+     fills and fused batches at 4 KiB, 1 MiB and 64 MiB: every phase on
+     every traced submit, the edges, the tracer's host-free fraction equal
+     to WaitStats', a valid Perfetto export, the Sampler's totals equal to
+     the telemetry snapshot's; a forced QueueFull closes its trace; the 4
+     KiB round trip traced and untraced; phase 3d's reduced model served on
+     a traced device, every descriptor under its request's ``req<id>``;
+  4e. training: (i) tinyllama-1.1b at full width and depth (bf16, flash,
+     per-layer remat), 6 ``make_train_step`` steps of 8 x 2048 tokens from
+     ``SyntheticLMDataset`` through the ``Prefetcher``: finite, falling
+     loss, 2 x 22 x 6 flash launches, peak memory, seconds a step (eager,
+     no compile step) and one step under ``torch.profiler``; (ii)
+     ``launch/train.py``'s ``train()`` at full width, depth cut to 2 of 22
+     layers, saves every 2 steps with kernel CRCs on 2 engines, run whole
+     (no restart) and with a crash injected after step 4's save (exactly
+     that one restart): the resumed run's step-6
+     checkpoint equals the whole run's, its manifest CRCs are zlib's;
   5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
@@ -97,8 +123,10 @@ no result, where ``torch.cuda.is_available()`` is false.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import re
 import shutil
 import statistics
@@ -1281,6 +1309,8 @@ FLASH_CASES = (
     (1, 1000, 1000, 16, 2, 64, True, 0, 0, torch.bfloat16),
     (1, 1000, 1000, 4, 2, 256, True, 128, 0, torch.float32),
     (1, 2048, 2048, 32, 4, 64, True, 0, 0, torch.bfloat16),
+    # phase 4e(i)'s training shape: batch 8 of full 64-row tiles
+    (8, 2048, 2048, 32, 4, 64, True, 0, 0, torch.bfloat16),
     (1, 2048, 2048, 8, 4, 128, True, 512, 16, torch.bfloat16),
     (1, 2048, 2048, 4, 4, 256, False, 0, 0, torch.bfloat16),
     (1, 2048, 2048, 4, 1, 32, True, 0, 0, torch.float32),
@@ -1953,6 +1983,456 @@ def times_4(dev, gen) -> list:
 
 
 # --------------------------------------------------------------------------- main
+# --------------------------------------------------------------------------- phase 2e
+#: phase 2e's shapes, (B, S, H, KV, hd): the reference test's f32 case, and
+#: tinyllama-1.1b's attention at its 2048-token context in bf16, at batch 1
+#: and at phase 4e(i)'s batch of 8
+FLASH_BWD_CASES = ((torch.float32, (1, 128, 4, 2, 32)), (torch.bfloat16, (1, 2048, 32, 4, 64)),
+                   (torch.bfloat16, (8, 2048, 32, 4, 64)))
+#: f32: the JAX package's tolerance for its custom VJP.  bf16: both
+#: backwards are the same chunked recompute, fed the cotangent of their own
+#: forward (outputs within 2 bf16 ulps of each other, FLASH_TOL) and
+#: rounded to bf16, so flash's gradients must stay within
+#: FLASH_BWD_BF16_ULPS ulps of the largest entry of the chunked path's
+#: (an ulp of x is 2^(floor(log2 |x|) - 7)); the chunked backward in bf16
+#: against itself in f32 (the bf16 noise) is printed beside it
+FLASH_BWD_F32_TOL = dict(atol=2e-4, rtol=2e-4)
+FLASH_BWD_BF16_ULPS = 4
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+@phase("2e flash attention's backward against the chunked path's")
+def flash_backward(dev, gen, cases=FLASH_BWD_CASES) -> dict:
+    """Gradients of ``attention_trainable(impl="flash")`` (the kernel
+    forward, the chunked recompute backward) against those of the plain
+    chunked ``attention``, both on the card, under ``torch.func.grad`` and
+    ``.backward()``.  The loss is half the squared output, so the output
+    cotangent is the forward's own output and the kernel's forward feeds
+    the backward."""
+    from repro_torch.models import layers as L
+
+    def loss(impl):
+        def f(q, k, v):
+            o = (L.attention_trainable(q, k, v, impl="flash") if impl == "flash"
+                 else L.attention(q, k, v))
+            return 0.5 * torch.sum(o.float() ** 2)
+        return f
+
+    out = {}
+    for dtype, (B, S, H, KV, hd) in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=gen.device).to(dtype).to(dev)
+                   for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+        want = torch.func.grad(loss("chunked"), argnums=(0, 1, 2))(q, k, v)
+        got = {"torch.func.grad": torch.func.grad(loss("flash"), argnums=(0, 1, 2))(q, k, v)}
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        loss("flash")(*leaves).backward()
+        got[".backward()"] = [t.grad for t in leaves]
+        name = f"{str(dtype).split('.')[-1]} [{B},{S},{H},{hd}]/[{B},{S},{KV},{hd}]"
+        if dtype == torch.float32:
+            errs = {how: max(float((a - b).abs().max()) for a, b in zip(g, want))
+                    for how, g in got.items()}
+            for how, g in got.items():
+                check(all(torch.allclose(a, b, **FLASH_BWD_F32_TOL) for a, b in zip(g, want)),
+                      f"flash gradients under {how} ({name}) differ from the chunked path's "
+                      f"by {errs[how]}")
+            out[name] = {"max_err": errs, "tol": FLASH_BWD_F32_TOL}
+        else:
+            f32 = torch.func.grad(loss("chunked"), argnums=(0, 1, 2))(
+                q.float(), k.float(), v.float())
+            noise = [float((a.float() - b).abs().max()) for a, b in zip(want, f32)]
+            scale = [float(a.float().abs().max()) for a in want]
+            errs = {how: [float((a.float() - b.float()).abs().max()) for a, b in zip(g, want)]
+                    for how, g in got.items()}
+            tol = [FLASH_BWD_BF16_ULPS * bf16_ulp(m) for m in scale]
+            for how, e in errs.items():
+                check(all(torch.isfinite(a).all() for a in got[how]),
+                      f"flash gradients under {how} ({name}) are not finite")
+                check(all(x <= t for x, t in zip(e, tol)),
+                      f"flash gradients under {how} ({name}) differ from the chunked path's "
+                      f"by {e} (dq, dk, dv), more than {FLASH_BWD_BF16_ULPS} bf16 ulps of "
+                      f"their largest entries {scale}")
+            out[name] = {"max_err": errs, "tol": tol, "bf16_noise": noise,
+                         "max_abs_grad": scale}
+        print(f"flash backward {name}: " + json.dumps(out[name]))
+    return out
+
+
+# --------------------------------------------------------------------------- phase 3e
+#: the kernels of the traced main path (phase 3e): copies, CRCs (and their
+#: fold), fills and a fused batch copy
+SLICE8_TRACED = ("memcpy_words", "crc32_chunk_states", "gf2_fold", "fill_words",
+                 "batch_copy_pages")
+
+
+def _traced_wait_policy(dev, gen, wait_policy: str, sizes) -> dict:
+    """One traced device under ``wait_policy``, with a Sampler attached, over
+    copies, CRCs, fills and a fused batch at ``sizes``, a ``.then`` chain and
+    an ``after=`` fence.  Checks the phases, the edges, the host-free
+    fraction against WaitStats, the Perfetto export and the Sampler's
+    deltas against the telemetry snapshot."""
+    from repro_torch.core import OpType, WorkDescriptor, make_device
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.kernels import ref
+    from repro_torch.obs import PHASES, host_free_fraction, phase_breakdown, to_perfetto
+
+    device = make_device(n_instances=2, policy="least_loaded", wait_policy=wait_policy,
+                         trace=1.0, device=dev)
+    tel = Telemetry(device)
+    sampler = device.observe(interval_s=0.005)
+    plain = []
+    edges_want = []
+    for nbytes in sizes:
+        x = rand_words(gen, nbytes // 4, dev)
+        a = device.memcpy_async(x)
+        b = device.memcpy_async(x, after=[a])
+        crc = device.crc32_async(x)
+        hexed = crc.then(lambda c: int(c)).then(lambda c: f"0x{c:08x}")
+        fill = device.fill_async((0xDEADBEEF, 7), nbytes // 4)
+        parts = list(x.view(4, -1))
+        batch = device.batch_async([WorkDescriptor(op=OpType.MEMCPY, src=p) for p in parts])
+        device.wait_all([a, b, crc, hexed, fill, batch])
+        # and 8 copies each waited for on its own, as Fig. 11's loop waits
+        for _ in range(8):
+            f = device.memcpy_async(x)
+            f.wait()
+            plain.append(f)
+        check(same_bits(a.result(), x) and same_bits(b.result(), x), f"traced copies {nbytes} B")
+        check(hexed.result() == f"0x{ref.crc32_ref(x):08x}", f"traced crc32 {nbytes} B != zlib")
+        check(all(same_bits(o, p) for o, p in zip(batch.result(), parts)),
+              f"traced batch {nbytes} B")
+        pat = fill.result().view(torch.int32)[:4].tolist()
+        check(pat == [0xDEADBEEF - (1 << 32), 7, 0xDEADBEEF - (1 << 32), 7],
+              f"traced fill {nbytes} B")
+        plain += [a, b, crc, fill, batch]
+        edges_want += [(a.trace.desc_id, b.trace.desc_id, "after"),
+                       (crc.trace.desc_id, hexed.parent.trace.desc_id, "then")]
+        del x, parts
+    device.drain()
+    sampler.stop()
+    for f in plain:
+        check(f.trace is not None and set(f.trace.phase_durations()) == set(PHASES),
+              f"{wait_policy}: a traced {f.op} lacks phases: "
+              f"{sorted(f.trace.phase_durations()) if f.trace else None}")
+    edges = set(device.tracer.edges())
+    check(all(e in edges for e in edges_want), f"{wait_policy}: .then / after edges missing")
+    # the tracer's host-free fraction and WaitStats' are the same numbers
+    frac = host_free_fraction(device.tracer)
+    busy = sum(s.busy_s for s in device.wait_stats.values())
+    free = sum(s.free_s for s in device.wait_stats.values())
+    check(busy + free > 0, f"{wait_policy}: no wait was billed")
+    check(frac == free / (busy + free),
+          f"{wait_policy}: host-free {frac} from the tracer, {free / (busy + free)} from WaitStats")
+    doc = json.loads(to_perfetto(device.tracer))
+    evs = [e for e in doc["traceEvents"] if "ts" in e]
+    check(evs and all(e["ts"] >= 0 and e.get("dur", 0) >= 0 for e in evs),
+          f"{wait_policy}: Perfetto export has negative times")
+    check({e["name"] for e in evs if e.get("ph") == "X"} >= set(PHASES),
+          f"{wait_policy}: Perfetto export lacks phases")
+    snap = tel.snapshot()
+    for key, col in (("bytes", "bytes"), ("count", "ops")):
+        want = sum(c[key] for e in snap["engines"].values() for c in e["ops"].values())
+        got = sum(t[col] for t in sampler.totals["engines"].values())
+        check(got == want, f"{wait_policy}: the Sampler's {col} {got} != telemetry's {want}")
+    return {"host_free": frac, "breakdown": phase_breakdown(device.tracer),
+            "ticks": sampler.totals["device"]["ticks"], "waits": len(device.tracer.wait_spans())}
+
+
+def _forced_queue_full(dev) -> None:
+    """Copies parked behind a promise fill the fence list of a one-slot
+    device with no retries: QueueFull, and its trace is closed."""
+    from repro_torch.core import QueueFull, make_device
+
+    device = make_device(n_instances=1, wq_size=1, max_retries=0, trace=1.0, device=dev)
+    gate = device.promise()
+    x = torch.zeros(1024, dtype=torch.int32, device=dev)
+    futs = []
+    try:
+        for _ in range(10000):
+            futs.append(device.memcpy_async(x, after=[gate]))  # dsalint: disable=DSA106 — filling the fence list one by one
+    except QueueFull:
+        pass
+    else:
+        raise SmokeError("QueueFull was not raised")
+    gate.set_result(None)
+    device.wait_all(futs)
+    device.drain()
+    errored = [t for t in device.tracer.traces() if t.attrs.get("error") == "QueueFull"]
+    check(len(errored) == 1 and "resolved" in errored[0].marks,
+          f"the QueueFull submit's trace: {errored}")
+    print(f"QueueFull after {len(futs)} fenced copies; its trace is closed")
+
+
+def _round_trips(dev, n: int, wait_policy: str) -> dict:
+    """Mean host seconds of one 4 KiB copy submitted and waited for under
+    ``wait_policy``, on an untraced and a traced device, n each, in the
+    order u t t u."""
+    from repro_torch.core import make_device
+
+    devices = {name: make_device(wait_policy=wait_policy, trace=trace, device=dev)
+               for name, trace in (("untraced", None), ("traced", 1.0))}
+    x = torch.zeros(1024, dtype=torch.int32, device=dev)
+    secs = {k: [] for k in devices}
+    for name in ("untraced", "traced", "traced", "untraced"):
+        d = devices[name]
+        d.memcpy_async(x).wait()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            d.memcpy_async(x).wait()
+        secs[name].append((time.perf_counter() - t0) / n)
+    return {k: statistics.mean(v) for k, v in secs.items()}
+
+
+@phase("3e traced main path")
+def traced_main_path(dev, gen, sizes=(4 * KiB, MiB, 64 * MiB),
+                     n_round_trips=(("umwait", 1000), ("spin", 50))) -> dict:
+    """``n_round_trips``: 4 KiB round trips timed per wait policy (fewer
+    under spin: its poll loop holds the GIL, so the PE thread that launches
+    each copy waits for a thread switch)."""
+    from repro_torch.core.completion import WAIT_POLICIES
+
+    out = {"host_free": {}, "breakdown": {}}
+    for wp in WAIT_POLICIES:
+        r = _traced_wait_policy(dev, gen, wp, sizes)
+        out["host_free"][wp] = r["host_free"]
+        out["breakdown"][wp] = {p: {k: s[k] for k in ("share", "mean_s", "p95_s", "count")}
+                                for p, s in r["breakdown"].items()}
+        print(f"{wp}: host-free share {r['host_free']:.4f} over {r['waits']} waits "
+              f"(equal to WaitStats'); {r['ticks']} sampler ticks")
+    _forced_queue_full(dev)
+    out["round_trip_4k_s"] = {wp: _round_trips(dev, n, wp) for wp, n in n_round_trips}
+    print("4 KiB round trip by wait policy, untraced and traced, s: "
+          + json.dumps(out["round_trip_4k_s"]))
+    print("phase breakdown under umwait: " + json.dumps(out["breakdown"]["umwait"]))
+    return out
+
+
+@phase("3e traced serving (tinyllama-1.1b.reduced(), f32)")
+def traced_serving(dev) -> dict:
+    """The reduced model of phase 3d served once on a traced device: every
+    descriptor a request submits carries the request's ``req<id>``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_device
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), dtype="float32")
+    model = build_model(cfg, remat=False, attn_impl="flash", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (16, 77, 33, 50, 64, 21)]
+    device = make_device(n_instances=2, policy="least_loaded", trace=1.0, device=dev)
+    serve(model, params, device, prompts, slots=3, max_cache=96, max_new=4, max_steps=500)
+    ids = {}
+    for tr in device.tracer.traces():
+        ids.setdefault(tr.trace_id, []).append(tr.op)
+    check(set(ids) == {f"req{i}" for i in range(len(prompts))},
+          f"descriptors outside a request's trace id: {sorted(ids)}")
+    print("descriptors by request: " + json.dumps({k: len(v) for k, v in sorted(ids.items())}))
+    return {k: len(v) for k, v in ids.items()}
+
+
+# --------------------------------------------------------------------------- phase 4e
+#: phase 4e(i): tinyllama-1.1b at full width and depth, 6 steps of 8 x 2048
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 2048, 6, 1e-3
+
+
+@phase("4e(i) training tinyllama-1.1b at full width and depth")
+def training_full(dev, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                  lr=TRAIN_LR) -> dict:
+    """``make_train_step`` (flash attention, per-layer remat) for ``steps``
+    steps on ``SyntheticLMDataset`` batches through the ``Prefetcher``; the
+    loss must be finite and fall, and the flash kernel must launch twice per
+    layer per step (forward and remat replay).  Eager PyTorch, no compile
+    step.  ``cfg`` lets a CPU rehearsal run a reduced config."""
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Prefetcher, SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = cfg or get_config("tinyllama-1.1b")
+    sync(dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    model = build_model(cfg, remat=True, attn_impl="flash", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    opt = AdamW(lr=lr)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(model, opt)
+    n_params = sum(t.numel() for t in ttree.leaves(params))
+    prefetch = Prefetcher(SyntheticLMDataset(cfg, batch, seq, seed=0), device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, secs = [], []
+    try:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            _, b = next(prefetch)
+            params, opt_state, metrics = step_fn(params, opt_state, b)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            secs.append(time.perf_counter() - t0)
+    finally:
+        prefetch.stop()
+    counts = read_counts(("flash_attention",))
+    # the training's own peak: what earlier phases left allocated is not
+    # counted
+    peak = torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda" else 0
+    profile = step_profile(lambda: step_fn(params, opt_state, b), dev)
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params} params "
+          f"({cfg.dtype}); losses {losses}; seconds a step {secs}; flash launches "
+          f"{counts['flash_attention']}; peak memory {peak} B")
+    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    want = 2 * cfg.num_layers * steps
+    check(dev.type != "cuda" or counts["flash_attention"] == want,
+          f"flash_attention launched {counts['flash_attention']} times, not 2 x "
+          f"{cfg.num_layers} layers x {steps} steps = {want}")
+    step_s = statistics.median(secs[1:])
+    return {"losses": losses, "step_s": secs, "median_step_s": step_s,
+            "tokens_per_s": batch * seq / step_s, "flash_launches": counts["flash_attention"],
+            "peak_bytes": peak, "params": n_params, "mode": "eager, no compile step",
+            "profile": profile}
+
+
+#: device work of a train step by kind, from the kernel's name: the flash
+#: kernel, f32 matmuls on the CUDA cores (cuBLAS ``f32f32`` / ``ffma``
+#: kernels: the chunked attention's backward, with TF32 off), the other
+#: matmuls (bf16 on the tensor cores), and everything else (casts, adds,
+#: softmax and norm pieces, reductions, copies)
+STEP_KINDS = (("flash_attention", ("flash_attention",)),
+              ("f32 matmul (CUDA cores)", ("f32f32_f32f32", "ffma")),
+              ("matmul (tensor cores)", ("gemm", "xmma", "cutlass", "nvjet")))
+
+
+def step_profile(fn, dev, top: int = 8) -> dict:
+    """One more call of ``fn`` (a train step) under ``torch.profiler``: its
+    host seconds (with the profiler's own cost), the device's busy seconds
+    (kernels and memsets, summed), those seconds by ``STEP_KINDS``, and the
+    ``top`` kernels by summed device time."""
+    if dev.type != "cuda":
+        return {}
+    sync(dev)
+    t0 = time.perf_counter()
+    work = device_work(fn)
+    wall = time.perf_counter() - t0
+    by_name: dict = {}
+    for name, us in work:
+        by_name[name] = by_name.get(name, 0.0) + us
+    by_kind = {kind: 0.0 for kind, _ in STEP_KINDS}
+    by_kind["other"] = 0.0
+    for name, us in by_name.items():
+        kind = next((k for k, words in STEP_KINDS if any(w in name for w in words)), "other")
+        by_kind[kind] += us * 1e-6
+    busy = sum(by_name.values()) * 1e-6
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    out = {"step_s": wall, "device_busy_s": busy, "launches": len(work),
+           "device_s_by_kind": by_kind,
+           "top_kernels_s": [(name[:120], us * 1e-6) for name, us in ranked]}
+    print("one profiled train step: " + json.dumps(out))
+    return out
+
+
+def _train_args(directory: Path, dev, *, reduced, layers, batch, seq):
+    import argparse
+
+    return argparse.Namespace(
+        arch="tinyllama-1.1b", reduced=reduced, steps=6, batch=batch, seq=seq, lr=TRAIN_LR,
+        micro_steps=1, seed=0, ckpt_dir=str(directory), ckpt_every=2, full_every=2,
+        replicas=1, log_every=1, no_remat=False, instances=2, policy="round_robin",
+        crc_impl="kernel", device=str(dev), layers=layers)
+
+
+class InjectedFailure(RuntimeError):
+    """The failure phase 4e(ii) injects into launch/train.py's loop."""
+
+
+@contextlib.contextmanager
+def crash_after_save(step: int):
+    """Within the block, launch/train.py's checkpoint manager raises
+    InjectedFailure once, after its save of ``step`` has landed."""
+    from repro_torch.launch import train as t_train
+
+    base, crashed = t_train.CheckpointManager, []
+
+    class CrashingManager(base):
+        def save(self, s, tree, **kw):
+            super().save(s, tree, **kw)
+            if s == step and not crashed:
+                crashed.append(s)
+                self.wait()
+                raise InjectedFailure(f"injected failure after step {s}'s save")
+
+    t_train.CheckpointManager = CrashingManager
+    try:
+        yield
+    finally:
+        t_train.CheckpointManager = base
+
+
+@phase("4e(ii) launch/train.py: checkpoints with kernel CRCs, a crash and a resume")
+def training_driver(dev, directory: Path = CKPT_DIR / "train", *, reduced=False,
+                    layers=TINYLLAMA_LAYERS_KEPT, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> dict:
+    """``launch/train.py``'s ``train()`` at tinyllama-1.1b's width, depth
+    cut to ``layers`` (the tree phase 4c checkpoints): 6 steps, a save every
+    2 (every other one full) with kernel CRCs on 2 engines, run whole and
+    run with a crash injected after step 4's save.  The crashed run resumes
+    from step 4 through ``run_with_restarts``; both runs' step-6
+    checkpoints must agree (rtol 1e-5, atol 1e-6), and the manifests' CRCs
+    must be zlib's."""
+    import io
+
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.launch.train import train
+
+    out = {}
+    reset_counts()
+    for name, crash in (("whole", None), ("crash", 4)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), \
+                (crash_after_save(crash) if crash else contextlib.nullcontext()):
+            final = train(_train_args(directory / name, dev, reduced=reduced, layers=layers,
+                                      batch=batch, seq=seq))
+        out[f"{name}_s"] = time.perf_counter() - t0
+        log = buf.getvalue()
+        print("\n".join("  " + line for line in log.splitlines()))
+        check(final == 6, f"{name} run ended at step {final}")
+        # run_with_restarts retries any failure: the whole run must need no
+        # restart, the crashed run exactly the one injected
+        restarts = [line for line in log.splitlines() if line.startswith("[fault] restarting")]
+        want = ["[fault] restarting from step 4 after InjectedFailure"] if crash else []
+        check(len(restarts) == len(want)
+              and all(line.startswith(w) for line, w in zip(restarts, want)),
+              f"{name} run restarted {len(restarts)} times: {restarts}")
+        if crash:
+            check("resumed from step 4" in log, "the crashed run did not resume from step 4")
+    sync(dev)
+    counts = read_counts(("copy_crc_words", "gf2_fold", "crc32_chunk_states", "flash_attention"))
+    print(f"launches on launch/train.py's path (both runs): {counts}")
+    check(dev.type != "cuda" or counts["copy_crc_words"] > 0,
+          f"no checkpoint CRC went through copy_crc_words: {counts}")
+    trees = {}
+    for name in ("whole", "crash"):
+        step, trees[name] = CheckpointManager(
+            CheckpointConfig(directory=str(directory / name))).restore()
+        check(step == 6, f"{name}: the newest restorable checkpoint is step {step}, not 6")
+    check(sorted(trees["whole"]) == sorted(trees["crash"]), "the two runs' leaf names")
+    worst = 0.0
+    for key, want in trees["whole"].items():
+        got = trees["crash"][key]
+        check(torch.allclose(got.float(), want.float(), rtol=1e-5, atol=1e-6),
+              f"{key}: the resumed run ends elsewhere than the uninterrupted run")
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+    man = check_manifest(directory / "crash", 6, tree_crcs(trees["crash"]))
+    out.update(launches=counts, max_abs_diff=worst, leaves=len(man["leaves"]))
+    shutil.rmtree(directory, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     try:
         return run()
@@ -1982,6 +2462,7 @@ def run() -> int:
     kernels_vs_plain_2(dev, gen, errs)
     kernels_vs_plain_3(dev, gen, errs)
     kernels_vs_plain_4(dev, gen, errs)
+    bwd = flash_backward(dev, gen)
     # each slice's main path, with the counts set to 0 just before it and
     # read just after it
     reset_counts()
@@ -2017,6 +2498,22 @@ def run() -> int:
           f"a kernel of the slice-4 main path never launched in phase 3d: {counts_3d}")
     full = serving_full(dev)  # sets the counts to 0 itself, reads them after serving
     counts4 = full["launches"]
+    reset_counts()
+    traced = traced_main_path(dev, gen)
+    sync(dev)
+    counts_3e = read_counts(SLICE8_TRACED)
+    print(f"launches on the traced main path (phase 3e): {counts_3e}")
+    check(all(v > 0 for v in counts_3e.values()),
+          f"a kernel of the traced main path never launched: {counts_3e}")
+    reset_counts()
+    traced_requests = traced_serving(dev)
+    sync(dev)
+    counts_3e_serve = read_counts(SLICE4)
+    print(f"launches while serving on the traced device (phase 3e): {counts_3e_serve}")
+    check(counts_3e_serve["flash_attention"] > 0 and counts_3e_serve["memcpy_words"] > 0,
+          f"traced serving did not launch flash_attention and memcpy_words: {counts_3e_serve}")
+    train_full = training_full(dev)  # sets the counts to 0 itself, reads them after
+    driver = training_driver(dev)  # the same
     crc_launches(dev, gen)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     rows = {r["name"]: r for r in times(dev, gen, shapes["pool"])}
@@ -2029,6 +2526,13 @@ def run() -> int:
     print("serving, tinyllama-1.1b.reduced() f32 (phase 3d): " + json.dumps(small))
     print("serving, tinyllama-1.1b full width and depth (phase 4d): "
           + json.dumps({k: v for k, v in full.items() if k != "launches"}))
+    print("flash backward against the chunked path (phase 2e): " + json.dumps(bwd))
+    print("traced main path (phase 3e): " + json.dumps(
+        {"host_free": traced["host_free"], "round_trip_4k_s": traced["round_trip_4k_s"],
+         "launches": counts_3e, "traced_serving_descriptors": traced_requests}))
+    print("training tinyllama-1.1b full width and depth, eager (phase 4e(i)): "
+          + json.dumps(train_full))
+    print("launch/train.py at full width, 2 of 22 layers (phase 4e(ii)): " + json.dumps(driver))
     table = kernel_table()
     kernels = []
     for name, (_, replaces) in table.items():

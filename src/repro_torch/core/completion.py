@@ -80,7 +80,8 @@ class WaitStats:
     def merge(self, other: "WaitStats") -> "WaitStats":
         """Fold another WaitStats in (each WaitPolicy.wait bills a local
         instance, merged into the device's per-policy bucket at the end:
-        totals identical to incremental billing)."""
+        totals identical to incremental billing, and the same numbers feed
+        the tracer's wait span, so both views always reconcile)."""
         self.waits += other.waits
         self.polls += other.polls
         self.wakes += other.wakes
@@ -182,9 +183,12 @@ class WaitPolicy:
              satisfied: Callable[[], bool],
              timeout: Optional[float] = None) -> bool:
         # bill into a LOCAL WaitStats, folded into the device's per-policy
-        # bucket once on exit
+        # bucket once on exit: totals are preserved exactly (Fig. 11
+        # unchanged) and the tracer records this wait's busy/free split as
+        # one wait span from the same numbers
         stats = WaitStats(waits=1)
-        deadline = None if timeout is None else time.perf_counter() + timeout
+        t_begin = time.perf_counter()
+        deadline = None if timeout is None else t_begin + timeout
         try:
             while True:  # dsalint: disable=DSA103 — WaitPolicy internals ARE the sanctioned pump
                 t0 = time.perf_counter()
@@ -200,6 +204,11 @@ class WaitPolicy:
         finally:
             stats.completions += sink.take_delivered()
             device._wait_bucket(self.name).merge(stats)
+            tracer = getattr(device, "tracer", None)
+            if tracer is not None:
+                tracer.wait_span(self.name, t_begin, time.perf_counter(),
+                                 stats.busy_s, stats.free_s,
+                                 stats.completions)
 
     def _idle(self, device, stats: WaitStats, deadline: Optional[float]):
         raise NotImplementedError

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import itertools
+import time
 from typing import Any, Optional, Sequence
 
 
@@ -92,6 +93,10 @@ class WorkDescriptor:
     # non-posted ENQCMD round trip by this, so a fused batch of N on a
     # shared WQ pays one round trip total instead of N.
     fused_n: int = 1
+    # allocation timestamp: start of the lifecycle "create" span when the
+    # descriptor is traced (repro_torch.obs.trace)
+    created_t: float = dataclasses.field(default_factory=time.perf_counter,
+                                         repr=False, compare=False)
 
     @property
     def nbytes(self) -> int:
@@ -123,6 +128,8 @@ class BatchDescriptor:
     dst_node: Optional[int] = None
     desc_id: int = dataclasses.field(default_factory=lambda: next(_ids))
     priority: int = 0
+    created_t: float = dataclasses.field(default_factory=time.perf_counter,
+                                         repr=False, compare=False)
 
     @property
     def nbytes(self) -> int:
@@ -158,6 +165,10 @@ class CompletionRecord:
     # stream, so the caching allocator does not hand their memory to later
     # kernels while work the submitter queued there still reads it.
     submit_point: Any = dataclasses.field(default=None, repr=False, compare=False)
+    # lifecycle trace (repro_torch.obs.spans.DescTrace) when the submission
+    # was sampled; every resolve/observe path checks ``is not None`` only,
+    # so untraced records pay a single attribute read
+    trace: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     def is_done(self) -> bool:
         return self.status in (Status.SUCCESS, Status.ERROR, Status.OVERFLOW)
@@ -170,3 +181,10 @@ def op_name(desc) -> str:
     if op is not None:
         return op.value if isinstance(op, OpType) else str(op)
     return "batch"
+
+
+def next_desc_id() -> int:
+    """Allocate a fresh descriptor id from the shared counter (used for
+    synthetic records, e.g. traced ``then`` continuations, that must be
+    addressable in the trace DAG alongside real descriptors)."""
+    return next(_ids)

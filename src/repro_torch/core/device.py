@@ -45,6 +45,7 @@ from repro_torch.core.descriptor import (
     OpType,
     Status,
     WorkDescriptor,
+    next_desc_id,
     op_name,
 )
 from repro_torch.core.engine import DeviceConfig, StreamEngine
@@ -106,6 +107,16 @@ class Future:
     @property
     def steering(self) -> Optional[str]:
         return self.record.steering
+
+    # -- lifecycle trace (repro_torch.obs; None when the submission was not sampled)
+    @property
+    def trace(self) -> Optional[Any]:
+        return self.record.trace
+
+    @property
+    def trace_id(self) -> Optional[str]:
+        tr = self.record.trace
+        return tr.trace_id if tr is not None else None
 
     def done(self) -> bool:
         """Non-kicking completion check."""
@@ -185,12 +196,22 @@ class Future:
                 return
             self._fired = True
             callbacks, self._callbacks = self._callbacks, []
+        tr = self.record.trace
+        if tr is not None:
+            # first observation of the completion by the host: ends the
+            # host_wait span (exactly-once, guarded by _fired above)
+            tr.mark("observed")
+            t_cb = tr.mark("cb0")
         if callbacks:
             # user code runs strictly outside _cb_lock; lockcheck verifies
             # no OTHER instrumented lock is held at this dispatch point
             with _lockcheck.notify_region("future.fire_callbacks"):
                 for fn in callbacks:
                     fn(self)
+        if tr is not None:
+            # no callbacks -> zero-length span at t_cb, so exports always
+            # carry the full phase set
+            tr.mark("cb1", None if callbacks else t_cb)
 
 
 class ChainedFuture(Future):
@@ -204,10 +225,22 @@ class ChainedFuture(Future):
         super().__init__(parent.device, None, rec)
         self.parent = parent
         self.fn = fn
+        # trace propagation: a continuation of a traced parent gets its own
+        # node (fresh desc_id) under the parent's trace id, linked by a
+        # "then" edge the critical-path analyzer walks
+        tracer = getattr(parent.device, "tracer", None)
+        ptr = parent.record.trace
+        if tracer is not None and ptr is not None:
+            rec.desc_id = next_desc_id()
+            rec.trace = tracer.begin_host(ptr.trace_id, rec.desc_id, rec.op)
+            tracer.edge(parent.record.desc_id, rec.desc_id, "then")
 
     def _resolve(self):
         if self.record.is_done():
             return
+        tr = self.record.trace
+        if tr is not None:
+            tr.mark("exec0")
         if self.parent.record.status == Status.ERROR:
             self.record.status = Status.ERROR
             self.record.error = self.parent.record.error or "parent failed"
@@ -218,6 +251,9 @@ class ChainedFuture(Future):
             except Exception as e:  # noqa: BLE001
                 self.record.status = Status.ERROR
                 self.record.error = f"{type(e).__name__}: {e}"
+        if tr is not None:
+            tr.mark("exec1")
+            tr.mark("resolved")
         if self.device is not None:
             self.device._on_future_done(self)  # deliver to completion sets
 
@@ -435,10 +471,22 @@ class Device:
                  pes_per_group: int = 4,
                  max_retries: int = 10, backoff_base_s: float = 20e-6,
                  validate: str = "warn",
+                 trace: Any = None,
                  device: Union[str, torch.device, None] = None):
         if validate not in ("strict", "warn", "off"):
             raise ValueError(f"validate must be 'strict', 'warn', or 'off', "
                              f"got {validate!r}")
+        # opt-in descriptor-lifecycle tracing (repro_torch.obs.trace):
+        # None/False off (the default: submit pays one attribute check),
+        # True/rate/TraceConfig/Tracer on.  Lazy import keeps core free of
+        # obs at module scope; a rate outside [0, 1] raises TraceRateError
+        # here.  Marks are host perf_counter stamps, as in the JAX package.
+        if trace is None:
+            self.tracer = None
+        else:
+            from repro_torch.obs.trace import make_tracer
+
+            self.tracer = make_tracer(trace)
         # submit-time descriptor validation mode (analysis/desclint.py):
         # strict raises the typed DescriptorError taxonomy, warn bumps the
         # desclint_warnings counter, off skips the checks
@@ -517,6 +565,10 @@ class Device:
         # deadlock against other waiters), so notifications queue here and
         # dispatch after the lock is released
         self._done_notifications: "deque[Future]" = deque()
+        # attached observability samplers (repro_torch.obs): registered on
+        # Sampler.start(), detached on stop(), so shutdown paths can find
+        # and stop any live background sampler threads
+        self._observers: List[Any] = []
         # SLO hint table (register_slo_classes): slo= submits resolve their
         # wq/priority defaults from here, keeping the class -> WQ mapping in
         # one place instead of at every call site
@@ -625,20 +677,24 @@ class Device:
         backoff attempt."""
         wq, priority = self._resolve_slo(slo, wq, priority)
         deps = list(after) if after is not None else None
-        self._prepare(desc, node=node)
+        trace = self._prepare(desc, producer=producer, node=node, slo=slo,
+                              after=deps)
         eng = self.policy.select(self.engines, desc, producer)
         delay = self.backoff_base_s
         for attempt in range(self.max_retries + 1):
             with self._engine_lock:
                 status, rec = eng.submit(desc, group=group, wq=wq,
                                          priority=priority,
-                                         producer=producer, after=deps)
+                                         producer=producer, after=deps,
+                                         trace=trace)
             self._dispatch_done()  # retirals observed by the submit's kick
             if status != Status.RETRY:
                 with self._lock:
                     self.policy_stats["decisions"][eng.name] += 1
                     self.policy_stats["decisions_by_op"][f"{eng.name}/{op_name(desc)}"] += 1
                     self.policy_stats["backoff_retries"] += attempt
+                if trace is not None and attempt:
+                    trace.attrs["retries"] = attempt
                 fut = Future(self, eng, rec)
                 self._inflight[id(rec)] = fut
                 if rec.is_done():
@@ -652,6 +708,11 @@ class Device:
         with self._lock:
             self.policy_stats["backoff_retries"] += self.max_retries
             self.policy_stats["queue_full"] += 1
+        if trace is not None:
+            # close the trace so a shed submission still folds/export:
+            # it consumed host time even though no engine accepted it
+            trace.attrs["error"] = "QueueFull"
+            trace.mark("resolved")
         raise QueueFull(eng.name, self.max_retries + 1)
 
     def _resolve_slo(self, slo: Optional[str], wq: Union[int, str, None],
@@ -674,12 +735,33 @@ class Device:
             priority = getattr(cls, "priority", None)
         return wq, priority
 
-    def _prepare(self, desc: Submittable, *, node: Optional[int]) -> None:
+    def _prepare(self, desc: Submittable, *, producer: Optional[str],
+                 node: Optional[int], slo: Optional[str],
+                 after: Optional[Sequence[Any]]) -> Optional[Any]:
         """Per-descriptor submit-side prep shared by every submission path:
-        stamp operand locality, then run desclint."""
+        begin the lifecycle trace, stamp operand locality, record fence
+        edges, and run desclint between the validate marks.  Returns the
+        trace (None when unsampled)."""
+        tracer = self.tracer
+        trace = tracer.begin(desc) if tracer is not None else None
         self._stamp_locality(desc, node)
+        if trace is not None:
+            if producer is not None:
+                trace.attrs["producer"] = producer
+            if slo is not None:
+                trace.attrs["slo"] = slo
+            if after:
+                for dep in after:
+                    dep_rec = getattr(dep, "record", dep)
+                    dep_id = getattr(dep_rec, "desc_id", None)
+                    if dep_id is not None and dep_id >= 0:
+                        tracer.edge(dep_id, desc.desc_id, "after")
+            trace.mark("validate0")
         if self.validate != "off":
             self._desclint(desc)
+        if trace is not None:
+            trace.mark("validate1")
+        return trace
 
     def submit_many(self, descs: Sequence[Submittable], *,
                     after: Optional[Sequence[Any]] = None,
@@ -694,7 +776,8 @@ class Device:
         ``chunk``, taking the device and WQ locks once per burst instead of
         once per descriptor and charging the non-posted ENQCMD round trip
         once per burst (each member's ``fused_n`` is stamped with the burst
-        width).  Validation stays exactly per-descriptor; the whole call shares one ``after`` fence list
+        width).  Validation and lifecycle traces stay exactly
+        per-descriptor; the whole call shares one ``after`` fence list
         (batch-fence semantics) and one policy decision per burst.
         Returns one Future per descriptor, in order; raises QueueFull when
         a burst stays refused through every backoff attempt."""
@@ -707,8 +790,9 @@ class Device:
         step = max(int(chunk), 1)
         for start in range(0, len(descs), step):
             burst = descs[start:start + step]
+            traces = [self._prepare(d, producer=producer, node=node, slo=slo,
+                                    after=deps) for d in burst]
             for d in burst:
-                self._prepare(d, node=node)
                 d.fused_n = len(burst)
             eng = self.policy.select(self.engines, burst[0], producer)
             delay = self.backoff_base_s
@@ -717,7 +801,8 @@ class Device:
                 with self._engine_lock:
                     results = eng.submit_many(burst, group=group, wq=wq,
                                               priority=priority,
-                                              producer=producer, after=deps)
+                                              producer=producer, after=deps,
+                                              traces=traces)
                 self._dispatch_done()
                 if results[0][0] != Status.RETRY:
                     break
@@ -728,6 +813,10 @@ class Device:
                 with self._lock:
                     self.policy_stats["backoff_retries"] += self.max_retries
                     self.policy_stats["queue_full"] += 1
+                for tr in traces:
+                    if tr is not None:
+                        tr.attrs["error"] = "QueueFull"
+                        tr.mark("resolved")
                 raise QueueFull(eng.name, self.max_retries + 1)
             with self._lock:
                 self.policy_stats["decisions"][eng.name] += len(burst)
@@ -780,6 +869,39 @@ class Device:
             raise desclint.error_for(diags, desc=desc)
         with self._lock:
             self.policy_stats["desclint_warnings"] += len(diags)
+
+    # ------------------------------------------------------------------ observability
+    def attach_observer(self, observer: Any) -> None:
+        """Register a live observer (a ``repro_torch.obs.Sampler``);
+        idempotent.  Observers are plain registrations (the device never
+        calls into them), but ``observers`` lets shutdown code stop stray
+        samplers."""
+        if observer not in self._observers:
+            self._observers.append(observer)
+
+    def detach_observer(self, observer: Any) -> None:
+        try:
+            self._observers.remove(observer)
+        except ValueError:
+            pass
+
+    @property
+    def observers(self) -> List[Any]:
+        return list(self._observers)
+
+    def observe(self, interval_s: float = 0.05, **kw) -> Any:
+        """Convenience: build a ``repro_torch.obs.Sampler`` over this device
+        and start its background sampling thread.  Caller owns stop():
+
+            sampler = device.observe(interval_s=0.01)
+            ... workload ...
+            sampler.stop(); print(sampler.to_csv())
+        """
+        from repro_torch.obs import Sampler  # lazy: obs imports core
+
+        sampler = Sampler(self, interval_s=interval_s, **kw)
+        sampler.start()
+        return sampler
 
     def promise(self) -> Promise:
         """A host-completed fence Future (see Promise)."""
@@ -1020,8 +1142,8 @@ class Device:
 
 class SubmitRing:
     """Opt-in deferred submission ring (the paper's batched-doorbell
-    guideline as an API): ``add()`` validates and buffers a descriptor,
-    returning a live Future immediately — and ``flush()``
+    guideline as an API): ``add()`` validates, traces, and buffers a
+    descriptor, returning a live Future immediately, and ``flush()``
     pushes the buffered burst through the engine's fused ``submit_many``
     path, taking the device and WQ locks once per burst and paying one
     amortized ENQCMD doorbell per burst of up to ``chunk``.
@@ -1049,8 +1171,8 @@ class SubmitRing:
         wq, priority = device._resolve_slo(slo, wq, priority)
         self._kw = dict(group=group, wq=wq, priority=priority,
                         producer=producer, node=node, slo=slo)
-        # (descriptor, record, deps) in submission order
-        self._pending: "deque[Tuple[Any, CompletionRecord, Optional[List[Any]]]]" = deque()
+        # (descriptor, trace, record, deps) in submission order
+        self._pending: "deque[Tuple[Any, Any, CompletionRecord, Optional[List[Any]]]]" = deque()
         self._lock = _lockcheck.checked_lock("device.ring")
         self._flushing = False
         self.stats = {"added": 0, "flushed": 0, "doorbells": 0, "retries": 0}
@@ -1065,17 +1187,19 @@ class SubmitRing:
     def add(self, desc: Submittable, *,
             after: Optional[Sequence[Any]] = None) -> Future:
         """Buffer one descriptor; returns its Future immediately (PENDING
-        until a flush lands it on an engine).  Validation and locality
-        stamping run here at add time: strict desclint raises before
-        anything is buffered."""
+        until a flush lands it on an engine).  Validation, locality
+        stamping, and trace marks run here at add time: strict desclint
+        raises before anything is buffered."""
         deps = list(after) if after is not None else None
-        self.device._prepare(desc, node=self._kw["node"])
+        trace = self.device._prepare(desc, producer=self._kw["producer"],
+                                     node=self._kw["node"],
+                                     slo=self._kw["slo"], after=deps)
         rec = CompletionRecord(desc_id=desc.desc_id, status=Status.PENDING,
-                               op=op_name(desc))
+                               op=op_name(desc), trace=trace)
         fut = Future(self.device, None, rec)
         self.device._inflight[id(rec)] = fut
         with self._lock:
-            self._pending.append((desc, rec, deps))
+            self._pending.append((desc, trace, rec, deps))
             self.stats["added"] += 1
             full = len(self._pending) >= self.depth
         if full:
@@ -1098,10 +1222,10 @@ class SubmitRing:
                 with self._lock:
                     if not self._pending:
                         break
-                    key = self._fence_key(self._pending[0][2])
+                    key = self._fence_key(self._pending[0][3])
                     burst = [self._pending.popleft()]
                     while (self._pending and len(burst) < self.chunk
-                           and self._fence_key(self._pending[0][2]) == key):
+                           and self._fence_key(self._pending[0][3]) == key):
                         burst.append(self._pending.popleft())
                 descs = [b[0] for b in burst]
                 for d in descs:
@@ -1112,8 +1236,9 @@ class SubmitRing:
                     results = eng.submit_many(
                         descs, group=self._kw["group"], wq=self._kw["wq"],
                         priority=self._kw["priority"],
-                        producer=self._kw["producer"], after=burst[0][2],
-                        records=[b[1] for b in burst])
+                        producer=self._kw["producer"], after=burst[0][3],
+                        traces=[b[1] for b in burst],
+                        records=[b[2] for b in burst])
                 dev._dispatch_done()
                 if results[0][0] == Status.RETRY:
                     with self._lock:
@@ -1184,14 +1309,12 @@ def make_device(n_instances: int = 1, *,
     (analysis/desclint.py): "strict" raises the typed DescriptorError
     taxonomy on malformed descriptors, "warn" (default) records them on the
     ``desclint_warnings`` counter, "off" skips the checks.
-    ``trace`` (descriptor-lifecycle tracing) is not ported yet: anything but
-    None raises NotImplementedError.
+    ``trace`` opts in descriptor-lifecycle tracing (repro_torch.obs): a
+    sampling rate in [0, 1] (rates outside raise ``TraceRateError``), True
+    (trace everything), or a ``TraceConfig``/``Tracer``; the span trees
+    land on ``device.tracer``.
     ``device`` is where the engines run: None means CUDA and raises where
     no card is present; ``"cpu"`` runs the kernels' plain PyTorch versions."""
-    if trace is not None:
-        raise NotImplementedError(
-            "make_device(trace=...): descriptor-lifecycle tracing is not "
-            "ported to repro_torch yet")
     if wq_configs is not None:
         pes = cfg_kw.pop("pes_per_group", 4)
         if cfg_kw:
@@ -1201,8 +1324,8 @@ def make_device(n_instances: int = 1, *,
                       wait_policy=wait_policy,
                       wq_configs=wq_configs, pes_per_group=pes,
                       max_retries=max_retries, backoff_base_s=backoff_base_s,
-                      validate=validate, device=device)
+                      validate=validate, trace=trace, device=device)
     return Device(n_instances=n_instances, topology=topology, policy=policy,
                   wait_policy=wait_policy, config_kw=cfg_kw or None,
                   max_retries=max_retries, backoff_base_s=backoff_base_s,
-                  validate=validate, device=device)
+                  validate=validate, trace=trace, device=device)

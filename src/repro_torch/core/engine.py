@@ -301,6 +301,12 @@ class StreamEngine:
         self._listeners.append(fn)
 
     def _notify(self, rec: CompletionRecord) -> None:
+        if rec.trace is not None:
+            # completion-record write instant as the host sees it (the slot's
+            # CUDA event queried true, or a CPU launch returned): ends the
+            # completion_write span (every resolve path, success, error or
+            # failed fence, funnels through here, like the counters)
+            rec.trace.mark("resolved")
         self._count(rec)
         for fn in self._listeners:
             fn(rec)
@@ -399,13 +405,17 @@ class StreamEngine:
                wq: Union[int, str, None] = None,
                producer: Optional[str] = None,
                after: Optional[Sequence[Any]] = None,
-               priority: Optional[int] = None) -> Tuple[Status, CompletionRecord]:
+               priority: Optional[int] = None,
+               trace: Optional[Any] = None) -> Tuple[Status, CompletionRecord]:
         """Enqueue a descriptor.  ``after`` is a sequence of dependency fences
         (CompletionRecords or anything with ``is_done()``/``status``): the
         descriptor is held back (the DSA batch-fence analogue) and only
         enters its WQ once every dependency has retired.  ``wq`` may be an
         index or a WQ name; ``priority`` steers to the nearest-priority WQ
-        when no explicit ``wq`` is given (see resolve_wq)."""
+        when no explicit ``wq`` is given (see resolve_wq).  ``trace`` is
+        the submission's lifecycle trace (repro_torch.obs), attached to the
+        completion record BEFORE any launch so dispatch/exec marks land
+        even when the internal kick runs the descriptor synchronously."""
         group, wq_idx = self.resolve_wq(group, wq, priority)
         after = list(after or ())
         failed = next((d for d in after
@@ -413,7 +423,8 @@ class StreamEngine:
         if failed is not None:
             rec = CompletionRecord(desc_id=desc.desc_id, status=Status.ERROR,
                                    op=op_name(desc),
-                                   error=f"dependency failed: {failed.status.name}")
+                                   error=f"dependency failed: {failed.status.name}",
+                                   trace=trace)
             self.records[desc.desc_id] = rec
             self._count_submitted(1, fused=False)
             self._notify(rec)
@@ -427,7 +438,12 @@ class StreamEngine:
                     desc_id=desc.desc_id, status=Status.RETRY, op=op_name(desc)
                 )
             rec = CompletionRecord(desc_id=desc.desc_id, status=Status.PENDING,
-                                   op=op_name(desc), submit_point=self._submit_point())
+                                   op=op_name(desc), submit_point=self._submit_point(),
+                                   trace=trace)
+            if trace is not None:
+                # accepted into the fence park list: wq_wait covers the
+                # fence hold plus any later WQ residency
+                trace.mark("accept")
             self.records[desc.desc_id] = rec
             self._deferred.append((desc, group, wq_idx, producer, deps, rec))
             self._count_submitted(1, fused=False)
@@ -437,6 +453,9 @@ class StreamEngine:
         rec = CompletionRecord(desc_id=desc.desc_id, status=status, op=op_name(desc))
         if status != Status.RETRY:
             rec.submit_point = self._submit_point()
+            rec.trace = trace
+            if trace is not None:
+                trace.mark("accept")
             self.records[desc.desc_id] = rec
             self._count_submitted(1, fused=False)
         self.kick()
@@ -448,6 +467,7 @@ class StreamEngine:
                     producer: Optional[str] = None,
                     after: Optional[Sequence[Any]] = None,
                     priority: Optional[int] = None,
+                    traces: Optional[Sequence[Any]] = None,
                     records: Optional[Sequence[CompletionRecord]] = None,
                     ) -> List[Tuple[Status, CompletionRecord]]:
         """Fused-doorbell submission: enqueue ``descs`` with ONE WQ lock
@@ -458,23 +478,28 @@ class StreamEngine:
         nothing was enqueued, so the Device layer can back off and resubmit
         the burst as a unit.
 
-        ``records`` lets a submit ring pass in pre-created
-        CompletionRecords whose Futures are already in callers' hands."""
+        ``traces`` (parallel to ``descs``) carries per-descriptor lifecycle
+        traces so spans stay exactly per-descriptor; ``records`` lets a
+        submit ring pass in pre-created CompletionRecords whose Futures are
+        already in callers' hands."""
         descs = list(descs)
         if not descs:
             return []
         group, wq_idx = self.resolve_wq(group, wq, priority)
         after = list(after or ())
         recs = list(records) if records is not None else [None] * len(descs)
+        traces = list(traces) if traces is not None else [None] * len(descs)
 
-        def bind(rec, desc, status, ready):
+        def bind(rec, desc, status, ready, trace):
             if rec is None:
                 rec = CompletionRecord(desc_id=desc.desc_id, status=status,
-                                       op=op_name(desc))
+                                       op=op_name(desc), trace=trace)
             else:
                 rec.status = status
                 if rec.op is None:
                     rec.op = op_name(desc)
+                if trace is not None:
+                    rec.trace = trace
             rec.submit_point = ready
             return rec
 
@@ -483,8 +508,8 @@ class StreamEngine:
                        if d.is_done() and d.status in (Status.ERROR, Status.OVERFLOW)), None)
         if failed is not None:
             # a torn fence fails the whole batch (nothing may launch)
-            for desc, rec in zip(descs, recs):
-                rec = bind(rec, desc, Status.ERROR, None)
+            for desc, trace, rec in zip(descs, traces, recs):
+                rec = bind(rec, desc, Status.ERROR, None, trace)
                 rec.error = f"dependency failed: {failed.status.name}"
                 self.records[desc.desc_id] = rec
                 out.append((Status.ERROR, rec))
@@ -499,8 +524,10 @@ class StreamEngine:
                     desc_id=descs[0].desc_id, status=Status.RETRY,
                     op=op_name(descs[0])))]
             ready = self._submit_point()
-            for desc, rec in zip(descs, recs):
-                rec = bind(rec, desc, Status.PENDING, ready)
+            for desc, trace, rec in zip(descs, traces, recs):
+                rec = bind(rec, desc, Status.PENDING, ready, trace)
+                if rec.trace is not None:
+                    rec.trace.mark("accept")
                 self.records[desc.desc_id] = rec
                 # members park individually but keep their fused_n stamp, so
                 # the amortized doorbell charge survives the fence hold
@@ -516,8 +543,10 @@ class StreamEngine:
                 desc_id=descs[0].desc_id, status=Status.RETRY,
                 op=op_name(descs[0])))]
         ready = self._submit_point()
-        for desc, rec in zip(descs, recs):
-            rec = bind(rec, desc, Status.PENDING, ready)
+        for desc, trace, rec in zip(descs, traces, recs):
+            rec = bind(rec, desc, Status.PENDING, ready, trace)
+            if rec.trace is not None:
+                rec.trace.mark("accept")
             self.records[desc.desc_id] = rec
             out.append((Status.PENDING, rec))
         self._count_submitted(len(descs), fused=True)
@@ -637,14 +666,26 @@ class StreamEngine:
         slot.desc = desc
         slot.t0 = time.perf_counter()
         slot.event = None
+        tr = rec.trace
+        if tr is not None:
+            tr.mark("dispatch")
+            tr.attrs.setdefault("engine", self.name)
+            if src_wq is not None:
+                tr.attrs.setdefault("wq", src_wq.name)
 
         def work(desc=desc, dst_tier=dst_tier, enqcmd_s=enqcmd_s,
-                 stream=slot.stream, point=point):
+                 stream=slot.stream, point=point, tr=tr):
             # runs on a PE worker thread: the launch happens off the
             # submitting thread, on the slot's own stream, after the
-            # submitter's stream reached the submit point
+            # submitter's stream reached the submit point.  exec0/exec1
+            # are host stamps around the launch (on the CPU, around the
+            # plain version's whole run)
+            if tr is not None:
+                tr.mark("exec0")
             if stream is None:
                 outputs, nbytes, modeled = self._execute(desc, dst_tier)
+                if tr is not None:
+                    tr.mark("exec1")
                 return outputs, nbytes, (modeled + enqcmd_s) * 1e6, None
             submit_stream, ready = point
             with torch.cuda.stream(stream):
@@ -654,6 +695,8 @@ class StreamEngine:
                     t.record_stream(submit_stream)
                 done = torch.cuda.Event()
                 done.record(stream)
+            if tr is not None:
+                tr.mark("exec1")
             return outputs, nbytes, (modeled + enqcmd_s) * 1e6, done
 
         slot.work = _pe_pool().submit(work)

@@ -1,20 +1,41 @@
-"""Prefill and decode step builders for serving.
+"""Train, prefill and decode step builders.
 
-These close over a model and return plain functions; PyTorch runs them
-eagerly (the reference jits them, with the cache donated: here the decode
-step updates the cache in place).  ``make_train_step`` waits for the
-training slice.
+These close over a model (and an optimizer) and return plain functions;
+PyTorch runs them eagerly (the reference jits them, donating the state: the
+decode step here updates the cache in place).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.optim.gradients import GradAccumulator, clip_by_global_norm
 
-def make_train_step(*_a, **_k) -> Callable:
-    raise NotImplementedError("make_train_step waits for the training slice "
-                              "(ROADMAP.md, queue 1: training)")
+
+def make_train_step(model, optimizer: AdamW, micro_steps: int = 1, clip_norm: float = 1.0,
+                    grad_shardings: Optional[Any] = None) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``grad_shardings`` (the reference's ZeRO-2 constraint on the gradient
+    tree) needs a mesh, which waits for distributed/: it must be None."""
+    if grad_shardings is not None:
+        raise NotImplementedError("grad_shardings needs a mesh: it waits for distributed/ "
+                                  "(ROADMAP.md, queue 1, item 12)")
+
+    def train_step(params, opt_state: AdamWState, batch):
+        loss, metrics, grads = GradAccumulator.accumulate(model.loss, params, batch,
+                                                          micro_steps)
+        if clip_norm > 0:
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        else:
+            gnorm = torch.zeros((), device=loss.device)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        out_metrics = {"loss": loss, "grad_norm": gnorm, **metrics}
+        return params, opt_state, out_metrics
+
+    return train_step
 
 
 def make_prefill_step(model, max_cache_len: int) -> Callable:

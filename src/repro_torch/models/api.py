@@ -1,5 +1,6 @@
-"""Public model API: ``build_model(cfg)``, ``make_batch`` and
-``params_from_numpy`` (the JAX package's parameter tree, carried over).
+"""Public model API: ``build_model(cfg)``, ``make_batch``, and
+``params_from_numpy`` / ``opt_state_from_numpy`` (the JAX package's
+parameter tree and AdamW state, carried over).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from repro_torch import tree as ttree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.decoder import DecoderModel
+from repro_torch.optim.adamw import AdamWState
 
 
 class Model(Protocol):
@@ -68,3 +70,14 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     names (``repro_torch.tree``)."""
     dev = resolve_device(device)
     return ttree.tree_map(lambda a: _leaf_to_tensor(a).to(dev), tree)
+
+
+def opt_state_from_numpy(state: Any, device=None):
+    """The JAX package's ``AdamWState`` with numpy leaves (e.g.
+    ``jax.tree.map(np.asarray, opt_state)``) as the port's ``AdamWState``
+    on ``device`` (None: CUDA): the int32 step and the f32 moments, leaf
+    for leaf."""
+    step, m, v = state
+    return AdamWState(step=params_from_numpy(step, device=device),
+                      m=params_from_numpy(m, device=device),
+                      v=params_from_numpy(v, device=device))

@@ -5,9 +5,9 @@ Each block is a pair of plain functions:
 * ``init_*_layer(gen, cfg, ...) -> params``  (one layer; ``n`` stacks them)
 * ``apply_*(x, p, ctx, mode, cache) -> (x, aux, new_cache)``
 
-``mode`` is "prefill" or "decode" ("train" waits for the training slice).
-Caches are dicts of tensors; "prefill" writes a fresh cache and "decode"
-updates one token IN PLACE (the reference returns new arrays; its server
+``mode`` is "train", "prefill" or "decode".  Caches are dicts of tensors;
+"train" writes none, "prefill" writes a fresh cache and "decode" updates
+one token IN PLACE (the reference returns new arrays; its server
 donates the old ones, so nothing reads them again).  The MoE, SSM and hybrid
 blocks are not here yet; the local-window ring cache (gemma3, hymba) raises
 ``NotImplementedError``.
@@ -104,8 +104,8 @@ def attn_sub(x: torch.Tensor, p: dict, ctx: Ctx, layer_type: str, mode: str,
              cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention sub-block (no residual / norm).  x [B, S, D] or [B, 1, D]."""
     _check_global(layer_type, ctx)
-    if mode not in ("prefill", "decode"):
-        raise not_ported(f"mode={mode!r} (the training slice)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
     cfg = ctx.cfg
     B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
@@ -114,10 +114,12 @@ def attn_sub(x: torch.Tensor, p: dict, ctx: Ctx, layer_type: str, mode: str,
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         o = L.attention_trainable(q, k, v, causal=ctx.causal, n_meta=ctx.n_meta,
                                   impl=ctx.attn_impl)
-        new_cache = _write_prefill_cache(cfg, ctx, layer_type, k, v)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = _write_prefill_cache(cfg, ctx, layer_type, k, v)
     else:  # decode: S == 1
         new_cache, k_all, v_all, valid = _decode_cache_update(cfg, ctx, layer_type, cache,
                                                               k[:, 0], v[:, 0])

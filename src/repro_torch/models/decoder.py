@@ -8,8 +8,9 @@ MoE, SSM, hybrid, VLM) raise ``NotImplementedError`` when the model is
 built; ROADMAP.md's queue 1 lists them.
 
 Entry points keep the reference's signatures and trees: ``init(gen)``,
-``prefill(params, batch, max_cache_len)``, ``init_cache(bsz, max_cache_len)``
-and ``decode_step(params, cache, tokens)``, with the cache
+``loss(params, batch)``, ``prefill(params, batch, max_cache_len)``,
+``init_cache(bsz, max_cache_len)`` and ``decode_step(params, cache,
+tokens)``, with the cache
 ``{"segments": [{"k": [L, B, S, KV, hd], "v": ...}], "lengths": [B]}``.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
@@ -102,9 +104,11 @@ def _stack(trees: List[dict]) -> dict:
 # --------------------------------------------------------------------------- model
 class DecoderModel:
     """``device`` is where the parameters and caches live: None means CUDA
-    (raising where no card is present), ``"cpu"`` the CPU.  ``remat``,
-    ``moe_dispatch`` and ``remat_group`` are the reference's training and
-    MoE knobs, kept for its signature; they change nothing here."""
+    (raising where no card is present), ``"cpu"`` the CPU.  ``remat``
+    checkpoints each layer of the training forward (each group of
+    ``remat_group`` layers when that divides the depth), as the reference's
+    ``jax.checkpoint``; ``moe_dispatch`` is kept for the reference's
+    signature and changes nothing here."""
 
     def __init__(self, cfg: ModelConfig, mesh=None, moe_dispatch: str = "dense",
                  remat: bool = True, attn_impl: str = "chunked", tp_comm: str = "auto",
@@ -153,13 +157,36 @@ class DecoderModel:
 
     # ------------------------------------------------------------------ stack walk
     def _run_stack(self, params, x, ctx: B.Ctx, mode: str, cache=None):
-        """Returns (x, aux_total, new_cache).  Prefill stacks the layers'
-        caches into [L, ...]; decode updates each layer's view of the
-        stacked cache in place."""
+        """Returns (x, aux_total, new_cache).  Train returns no cache and,
+        with ``ctx.remat``, keeps only each layer's (or group's) input for
+        the backward, which replays the layer (flash kernel included).
+        Prefill stacks the layers' caches into [L, ...]; decode updates each
+        layer's view of the stacked cache in place."""
         seg = self.segments[0]
         p_seg = params["segments"][0]
         c_seg = cache["segments"][0] if cache is not None else None
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        if mode == "train":
+            def run(xx, aux, lo, hi):
+                for li in range(lo, hi):
+                    xx, a, _ = B.apply_dense(xx, _layer(p_seg, li), ctx,
+                                             seg.layer_types[li], "train", None)
+                    aux = aux + a
+                return xx, aux
+
+            group = self.remat_group
+            if not (ctx.remat and group > 1 and seg.n % group == 0):
+                # nested remat (group > 1) saves only every group-th
+                # residual; otherwise one checkpoint per layer
+                group = 1
+            for lo in range(0, seg.n, group):
+                if ctx.remat:
+                    x, aux_total = _ckpt.checkpoint(run, x, aux_total, lo, lo + group,
+                                                    use_reentrant=False)
+                else:
+                    x, aux_total = run(x, aux_total, lo, lo + group)
+            x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+            return x, aux_total, None
         caches = []
         for li in range(seg.n):
             c_l = None if c_seg is None else _layer(c_seg, li)
@@ -169,8 +196,23 @@ class DecoderModel:
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return x, aux_total, {"segments": [_stack(caches) if mode == "prefill" else c_seg]}
 
-    def loss(self, params, batch):
-        raise B.not_ported("the training loss (the training slice)")
+    def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
+        """batch {"tokens": [B, S] int, "loss_mask": [B, S] (optional)} ->
+        (loss, {"ce", "aux"}): next-token CE with the last position masked,
+        through ``_chunked_ce``."""
+        tokens = batch["tokens"]
+        bsz, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(bsz, S)
+        ctx = self._make_ctx(positions)
+        x, aux, _ = self._run_stack(params, self._embed(params, tokens), ctx, "train")
+        labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+                if mask is None else mask.to(torch.float32).clone())
+        mask[:, -1] = 0.0
+        ce = _chunked_ce(x, params["unembed"], False, labels, mask)
+        loss = ce + aux
+        return loss, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------ prefill / decode
     def prefill(self, params, batch, max_cache_len: int):
@@ -202,6 +244,33 @@ class DecoderModel:
         logits = L.unembed(x[:, 0], params["unembed"], False)
         new_cache["lengths"] = lengths + 1
         return logits, new_cache
+
+
+def _chunked_ce(x, w, transpose, labels, mask, target_tokens: int = 16384):
+    """Cross-entropy without materializing [B, S, V] logits: a loop over
+    sequence chunks, each checkpointed, so the backward recomputes a
+    chunk's logits instead of keeping them (the reference's scan of
+    ``jax.checkpoint(body)``).  One chunk takes the plain path."""
+    bsz, S, D = x.shape
+    chunk = max(1, min(S, target_tokens // max(bsz, 1)))
+    while S % chunk != 0:
+        chunk -= 1
+    n = S // chunk
+    if n <= 1:
+        return L.cross_entropy(L.unembed(x, w, transpose), labels, mask)
+
+    def body(xb, lb, mb):
+        logits = L.unembed(xb, w, transpose)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, lb.long()[..., None], dim=-1)[..., 0]
+        return ((logz - gold) * mb).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + _ckpt.checkpoint(body, x[:, sl], labels[:, sl], mask[:, sl],
+                                         use_reentrant=False)
+    return total / torch.clamp_min(mask.sum(), 1.0)
 
 
 def _to(tree, device):

@@ -8,7 +8,9 @@ Attention comes in three forms:
                            plain PyTorch (the reference's non-kernel baseline,
                            ``attn_impl="chunked"``);
 * ``attention_trainable(impl="flash")`` -- the hand-written CUDA kernel
-                           (``kernels/flash_attention.py``);
+                           (``kernels/flash_attention.py``) forward, with a
+                           backward that recomputes through ``attention``
+                           (the reference's custom VJP);
 * ``decode_attention``  -- one new token against a KV cache with a per-
                            sequence validity mask.
 
@@ -186,17 +188,42 @@ def _flash_call(q, k, v, causal, window, n_meta):
     return _flash.flash_attention(q, k, v, causal=causal, window=window, n_meta=n_meta)
 
 
+class _FlashRefBwd(torch.autograd.Function):
+    """Flash forward, reference backward (the JAX package's
+    ``_flash_fwd_ref_bwd`` custom VJP).  The forward is the kernel (its
+    plain version on CPU tensors); it runs again in every remat replay.  The
+    backward recomputes through the chunked ``attention`` and differentiates
+    it with ``torch.func.vjp``: there is no backward kernel, as in the
+    reference.  The ``setup_context`` form lets ``torch.func`` transforms
+    call it: the kernel then sees plain tensors, not functorch wrappers."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, n_meta, q_offset):
+        return _flash_call(q, k, v, causal, window, n_meta)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, n_meta, q_offset = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, n_meta, q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        causal, window, n_meta, q_offset = ctx.args
+        _, vjp = torch.func.vjp(
+            lambda q, k, v: attention(q, k, v, causal=causal, window=window, n_meta=n_meta,
+                                      q_offset=q_offset),
+            q, k, v)
+        return (*vjp(g), None, None, None, None)
+
+
 def attention_trainable(q, k, v, *, causal: bool = True, window: int = 0, n_meta: int = 0,
                         q_offset: int = 0, impl: str = "chunked"):
     """Attention with a selectable implementation: "chunked" (plain PyTorch,
-    the baseline) or "flash" (the CUDA kernel, forward only: the reference's
-    custom VJP waits for the training slice)."""
+    the baseline) or "flash" (the CUDA kernel forward, reference backward)."""
     if impl == "flash":
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "attn_impl='flash' has no backward yet: it waits for the training slice "
-                "(ROADMAP.md, queue 1, training)")
-        return _flash_call(q, k, v, causal, window, n_meta)
+        return _FlashRefBwd.apply(q, k, v, causal, window, n_meta, q_offset)
     return attention(q, k, v, causal=causal, window=window, n_meta=n_meta, q_offset=q_offset)
 
 
@@ -216,3 +243,11 @@ def unembed(x: torch.Tensor, table: torch.Tensor, transpose: bool) -> torch.Tens
     """Logits head in f32.  table is [V, D] if transpose (tied) else [D, V]."""
     w = table.T if transpose else table
     return (x @ w.to(x.dtype)).float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean CE over masked positions.  logits [B, S, V] f32, labels [B, S] int."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp_min(mask.sum(), 1.0)

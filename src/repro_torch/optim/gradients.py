@@ -27,14 +27,25 @@ class GradAccumulator:
     every leaf into ``n`` microbatches (a leaf named ``positions_thw`` has
     its batch at axis 1) and averages grads in fp32.  ``loss_fn(params,
     batch)`` returns ``(loss, metrics)`` and is differentiated with
-    ``torch.func.grad_and_value``.  Buffer zeroing between macro-steps is the
-    engine's Memory Fill op in the real pipeline (see
+    ``torch.autograd.grad`` over the parameter leaves (not ``torch.func``:
+    its transforms refuse the saved-tensor hooks of the model's
+    non-reentrant activation checkpointing).  Buffer zeroing between
+    macro-steps is the engine's Memory Fill op in the real pipeline (see
     repro_torch.kernels.ops.fill_like).
     """
 
     @staticmethod
     def accumulate(loss_fn, params, batch, n: int):
-        grad_and_value = torch.func.grad_and_value(loss_fn, has_aux=True)
+        def grad_and_value(params, batch):
+            flat, treedef = _tree.flatten(params)
+            leaves = [p.detach().requires_grad_(True) for p in flat]
+            with torch.enable_grad():
+                loss, metrics = loss_fn(_tree.unflatten(treedef, leaves), batch)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+            metrics = _tree.tree_map(lambda m: m.detach(), metrics)
+            return _tree.unflatten(treedef, grads), (loss.detach(), metrics)
+
         if n <= 1:
             grads, (loss, metrics) = grad_and_value(params, batch)
             return loss, metrics, grads

@@ -184,9 +184,16 @@ def test_attention_trainable_dispatches_like_the_reference(rng, impl):
 
 
 def test_flash_has_no_backward_yet(rng):
+    """The flash path's gradients are the chunked path's.  It has no
+    backward kernel, as in the reference: under grad it recomputes through
+    the chunked attention (tests/test_torch_train.py holds the gradients
+    against the JAX package's custom VJP).  The name dates from when the
+    flash path raised under grad."""
     q, k, v = (t.requires_grad_() for t in map(_t, _inputs(rng, 1, 8, 8, 2, 1, 32)))
-    with pytest.raises(NotImplementedError):
-        TL.attention_trainable(q, k, v, impl="flash")
+    got = torch.autograd.grad(TL.attention_trainable(q, k, v, impl="flash").sum(), (q, k, v))
+    want = torch.autograd.grad(TL.attention(q, k, v).sum(), (q, k, v))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **F32_TOL)
 
 
 # --------------------------------------------------------------------------- bf16 tile walk
