@@ -65,7 +65,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      1, 63, 64, 65, 77, 100, 129, 1000 and 2048 (the bf16 kernel's tile
      edges), B = 2 with ragged lengths, B = 8 at tinyllama's 2048 tokens
      (phase 4e(i)'s training shape), windowed Sq > Skv cases with rows
-     that see no key or only the meta keys, bf16 and f32;
+     that see no key or only the meta keys, gemma3-1b's local layers (hd
+     256, window 1024) and qwen2-vl-2b's (hd 128) at 2048 tokens, bf16 and
+     f32;
   3d. the slice-4 main path at a small size: tinyllama-1.1b.reduced() in f32
      served (6 requests of 16-77 tokens, 4 new tokens each) by the
      ``VhostStyleServer`` with ``attn_impl="flash"`` on the card, and with the
@@ -105,15 +107,40 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      (no restart) and with a crash injected after step 4's save (exactly
      that one restart): the resumed run's step-6
      checkpoint equals the whole run's, its manifest CRCs are zlib's;
+  3f. gemma3-1b.reduced() at 8 layers (one period of 5 local layers with a
+     16-token ring and a global one, then 2 local layers) in f32, served
+     (6 requests of 16-77 tokens, 8 new tokens each, 3 slots; the ring wraps
+     in prefill and in decode) on the card and on the CPU with the same
+     weights: the same tokens, prefill logits within 1e-4; every splice of
+     a batch-1 prefill into the batch cache checked leaf by leaf;
+  4f. gemma3-1b at full width and depth (26 layers, d_model 1152, 4 heads
+     and 1 KV head of 256, a 1024-token window on 5 of 6 layers, qk-norm,
+     tied embeddings; bf16, ~1.0 G parameters) served as in 4d: every
+     request completes, 26 x 8 flash launches, each admission's spliced
+     slot bit-equal to its batch-1 prefill cache on every leaf (the other
+     slots unchanged), flash against chunked prefill logits as in 4d, TTFT,
+     decode tokens/s, peak memory;
+  4g. qwen2-vl-2b at full width and depth (28 layers, d_model 1536, 12 heads
+     and 2 KV heads of 128, M-RoPE sections (16, 24, 24); bf16, ~1.8 G
+     parameters) through the model API: 2 x 2048 tokens with 256 patch
+     embeddings at positions 1-256 on a 16 x 16 (t, h, w) grid, prefill and
+     16 greedy decode steps, 28 flash launches in the prefill, flash against
+     chunked prefill logits as in 4d; the same batch at reduced() size in
+     f32 on the card and on the CPU within 1e-4;
   5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
-     ``scaled_dot_product_attention``, also at hd 128 and 256; fill against
+     ``scaled_dot_product_attention``, also at hd 128 and 256, and at the
+     gemma3-1b and qwen2-vl-2b prefill shapes with their bounds over the
+     visible (q, k) pairs and SDPA (with an explicit boolean mask for the
+     window); fill against
      ``Tensor.fill_`` interleaved call by call); the device work of one
      delta apply on the leaf (``torch.profiler``); the save and restore
      seconds of phase 4c; ``ops.crc32`` end to end at 4 KiB .. 1 GiB;
   6. the launch counts of each slice's main path, set to 0 just before it
-     and read just after: every kernel of the path must have launched; and
+     and read just after: every kernel of the path must have launched
+     (flash_attention and memcpy_words in 3f and 4f, flash_attention in
+     4g); and
      of one ``ops.crc32`` at 4 KiB .. 1 GiB: one CRC launch, plus the
      sub-chunk fold only where a chunk is longer than one sub-chunk.
 
@@ -1334,6 +1361,15 @@ FLASH_CASES = (
     (2, 77, 77, 2, 2, 256, True, 0, 0, torch.bfloat16),
     (1, 129, 129, 8, 2, 256, True, 0, 0, torch.bfloat16),
     (2, 100, 100, 8, 1, 256, False, 0, 0, torch.bfloat16),
+    # the slice-9 prefill shapes: gemma3-1b's local layers (hd 256, a
+    # 1024-key window cutting the 32-key tiles) and qwen2-vl-2b's (hd 128)
+    (1, 2048, 2048, 4, 1, 256, True, 1024, 0, torch.bfloat16),
+    (2, 2048, 2048, 12, 2, 128, True, 0, 0, torch.bfloat16),
+    # gemma3-1b's global layers (causal, no window, 64 key tiles at hd 256)
+    # and its local layers at the 1536-token prompt (the window cuts
+    # another tile)
+    (1, 2048, 2048, 4, 1, 256, True, 0, 0, torch.bfloat16),
+    (1, 1536, 1536, 4, 1, 256, True, 1024, 0, torch.bfloat16),
 )
 
 
@@ -1399,50 +1435,73 @@ def serve(model, params, device, prompts, *, slots, max_cache, max_new, max_step
     return reqs, server, secs
 
 
-@phase("3d serving on the card and on the CPU (tinyllama-1.1b.reduced(), f32)")
-def serving_small(dev) -> dict:
+def serve_card_and_cpu(dev, cfg, prompt_lens, *, max_new: int, prompt_seed: int,
+                       device, kv_pool=None, splices=None) -> dict:
+    """Serve prompts of ``prompt_lens`` tokens (3 slots, a cache of 96)
+    with ``cfg``'s model (flash) on the card through ``device`` and, with
+    the same weights, on the CPU: the same tokens, and the 77-token
+    prefill's logits within SERVE_F32_TOL.  The launch counts are set to 0
+    just before the card serves and read just after; with ``splices`` (a
+    list) every splice is checked (``checked_splices``)."""
     from repro_torch import tree as ttree
-    from repro_torch.configs import get_config
     from repro_torch.core import make_device
     from repro_torch.models.api import build_model
-    from repro_torch.serving.kv_pool import PagedKVPool
 
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), dtype="float32")
     card = build_model(cfg, remat=False, attn_impl="flash", device=dev)
     params = card.init(torch.Generator(device=dev).manual_seed(1))
     host_model = build_model(cfg, remat=False, attn_impl="flash", device="cpu")
     host_params = ttree.tree_map(lambda t: t.cpu(), params)
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (16, 77, 33, 50, 64, 21)]
-    kw = dict(slots=3, max_cache=96, max_new=4, max_steps=500)
-    device = make_device(n_instances=2, policy="least_loaded", device=dev)
-    # admission reserves each prompt's KV pages in a pool on the card
-    pool = PagedKVPool(n_device_pages=32, n_host_pages=16, page_tokens=16,
-                       kv_dim=2 * cfg.num_kv_heads * cfg.head_dim, dtype=torch.float32,
-                       device=device)
-    on_card, server, secs = serve(card, params, device, prompts, kv_pool=pool, **kw)
-    check(pool.stats.device_pages_used == 0 and not pool.page_table,
-          f"KV pages leaked: {pool.stats}")
-    kv_pool_round_trip(pool, gen=torch.Generator(device=dev).manual_seed(5))
-    on_cpu, _, cpu_secs = serve(host_model, host_params,
-                                make_device(n_instances=2, policy="least_loaded", device="cpu"),
-                                prompts, **kw)
+    rng = np.random.default_rng(prompt_seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in prompt_lens]
+    kw = dict(slots=3, max_cache=96, max_new=max_new, max_steps=500)
+    def checking():
+        return checked_splices(splices) if splices is not None else contextlib.nullcontext()
+
+    reset_counts()
+    with checking():
+        on_card, server, secs = serve(card, params, device, prompts, kv_pool=kv_pool, **kw)
+    sync(dev)
+    counts = read_counts(SLICE4)
+    with checking():
+        on_cpu, _, cpu_secs = serve(
+            host_model, host_params,
+            make_device(n_instances=2, policy="least_loaded", device="cpu"), prompts, **kw)
     check([r.output for r in on_card] == [r.output for r in on_cpu],
           f"the card served other tokens than the CPU: {[r.output for r in on_card]} vs "
           f"{[r.output for r in on_cpu]}")
-    toks = torch.from_numpy(prompts[1])[None]
+    toks = torch.from_numpy(prompts[prompt_lens.index(77)])[None]
     _, lc, _ = card.prefill(params, {"tokens": toks.to(dev)}, 96)
     _, lh, _ = host_model.prefill(host_params, {"tokens": toks}, 96)
     err = float((lc.cpu() - lh).abs().max())
     check(bool(torch.isfinite(lc).all()) and lc.shape == (1, cfg.vocab_size), "prefill logits")
     check(torch.allclose(lc.cpu(), lh, **SERVE_F32_TOL),
           f"prefill logits of the card and the CPU differ by {err}")
-    print(f"6 requests served on the card in {secs:.3f} s and on the CPU in {cpu_secs:.3f} s: "
-          f"the same {sum(len(r.output) for r in on_card)} tokens; 77-token prefill logits "
-          f"max |card - CPU| {err:.3e}; placements "
-          f"{dict(server.device.policy_stats['decisions'])}")
-    return {"card_s": secs, "cpu_s": cpu_secs, "logits_err": err}
+    print(f"{len(prompts)} requests served on the card in {secs:.3f} s and on the CPU in "
+          f"{cpu_secs:.3f} s: the same {sum(len(r.output) for r in on_card)} tokens; 77-token "
+          f"prefill logits max |card - CPU| {err:.3e}; placements "
+          f"{dict(server.device.policy_stats['decisions'])}; launches on the card {counts}")
+    return {"card_s": secs, "cpu_s": cpu_secs, "logits_err": err, "launches": counts}
+
+
+@phase("3d serving on the card and on the CPU (tinyllama-1.1b.reduced(), f32)")
+def serving_small(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_device
+    from repro_torch.serving.kv_pool import PagedKVPool
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), dtype="float32")
+    device = make_device(n_instances=2, policy="least_loaded", device=dev)
+    # admission reserves each prompt's KV pages in a pool on the card
+    pool = PagedKVPool(n_device_pages=32, n_host_pages=16, page_tokens=16,
+                       kv_dim=2 * cfg.num_kv_heads * cfg.head_dim, dtype=torch.float32,
+                       device=device)
+    out = serve_card_and_cpu(dev, cfg, (16, 77, 33, 50, 64, 21), max_new=4, prompt_seed=3,
+                             device=device, kv_pool=pool)
+    check(pool.stats.device_pages_used == 0 and not pool.page_table,
+          f"KV pages leaked: {pool.stats}")
+    kv_pool_round_trip(pool, gen=torch.Generator(device=dev).manual_seed(5))
+    del out["launches"]
+    return out
 
 
 def kv_pool_round_trip(pool, gen) -> None:
@@ -1469,19 +1528,85 @@ def kv_pool_round_trip(pool, gen) -> None:
 def serving_full(dev, cfg=None) -> dict:
     """``cfg`` (default: tinyllama-1.1b) lets a CPU rehearsal run a reduced
     config through the same steps."""
-    from repro_torch import tree as ttree
     from repro_torch.configs import get_config
+
+    return serve_full(dev, cfg or get_config("tinyllama-1.1b"))
+
+
+@phase("4f serving gemma3-1b at full width and depth (bf16, flash)")
+def serving_gemma(dev) -> dict:
+    """gemma3-1b (26 layers: 4 periods of 5 local layers with a 1024-token
+    ring and a global one, then 2 local layers; qk-norm, tied embeddings)
+    served as phase 4d serves tinyllama."""
+    from repro_torch.configs import get_config
+
+    return serve_full(dev, get_config("gemma3-1b"))
+
+
+@contextlib.contextmanager
+def checked_splices(out: list):
+    """Within the block, each ``_splice_cache`` of the server is checked:
+    afterwards the spliced slot of every cache leaf is bit-equal to the
+    batch-1 prefill's, and every other slot is what it was.  A leaf's batch
+    axis is found from the shapes (the one axis where the batch cache and
+    the batch-1 cache differ), independently of the splice's own rule.
+    Appends (leaves checked, seconds of the splice and its check) per
+    splice to ``out``."""
+    from repro_torch import tree as ttree
+    from repro_torch.serving import pipeline
+
+    base = pipeline._splice_cache
+
+    def splice(batch_cache, one_cache, slot):
+        t0 = time.perf_counter()
+        before = [t.clone() for t in ttree.leaves(batch_cache["segments"])]
+        got = base(batch_cache, one_cache, slot)
+        dst, src = ttree.leaves(got["segments"]), ttree.leaves(one_cache["segments"])
+        check(len(dst) == len(src) == len(before), "the spliced cache's leaves")
+        for d, s, b in zip(dst, src, before):
+            axes = [i for i, (m, n) in enumerate(zip(d.shape, s.shape)) if m != n]
+            check(d.dim() == s.dim() and len(axes) == 1 and s.shape[axes[0]] == 1,
+                  f"a cache leaf {tuple(d.shape)} against the batch-1 {tuple(s.shape)}")
+            ax = axes[0]
+            check(same_bits(d.select(ax, slot), s.select(ax, 0)),
+                  f"slot {slot} of a cache leaf {tuple(d.shape)} (batch axis {ax}) is not "
+                  f"the batch-1 prefill's")
+            others = [i for i in range(d.shape[ax]) if i != slot]
+            idx = torch.tensor(others, device=d.device)
+            check(same_bits(d.index_select(ax, idx), b.index_select(ax, idx)),
+                  f"the splice into slot {slot} changed another slot of a leaf "
+                  f"{tuple(d.shape)}")
+        check(int(got["lengths"][slot]) == int(one_cache["lengths"][0]), "spliced length")
+        out.append((len(dst), time.perf_counter() - t0))
+        return got
+
+    pipeline._splice_cache = splice
+    try:
+        yield
+    finally:
+        pipeline._splice_cache = base
+
+
+def serve_full(dev, cfg) -> dict:
+    """Serve FULL_PROMPTS through 4 slots at ``cfg``'s width and depth
+    (bf16, flash): every request completes, every admission's splice is
+    checked (``checked_splices``), flash launches once a layer a prefill
+    and the prompt copies go through memcpy_words and batch_copy_pages;
+    time to first token, decode tokens/s, peak memory; then the 2048-token
+    prefill's logits under "flash" against "chunked"."""
+    from repro_torch import tree as ttree
     from repro_torch.core import make_device
     from repro_torch.models.api import build_model
 
-    cfg = cfg or get_config("tinyllama-1.1b")
+    sync(dev)
+    base = torch.cuda.memory_allocated(dev)
     model = build_model(cfg, remat=False, attn_impl="flash", device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(2))
     sync(dev)
     n_params = sum(t.numel() for t in ttree.leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in ttree.leaves(params))
-    print(f"tinyllama-1.1b: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params} params, "
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params} params, "
           f"{n_bytes} B ({cfg.dtype}) made on the card in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in FULL_PROMPTS]
@@ -1499,11 +1624,37 @@ def serving_full(dev, cfg=None) -> dict:
             return out
         return run
 
+    # the server's batch-1 prefills, synchronised on both sides: the
+    # prefill's share of each time to first token
+    prefill_s: list = []
+    plain_prefill = model.prefill
+
+    def timed_prefill(params, batch, *a, **kw):
+        sync(dev)
+        t = time.perf_counter()
+        out = plain_prefill(params, batch, *a, **kw)
+        sync(dev)
+        prefill_s.append((batch["tokens"].shape[1], time.perf_counter() - t))
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    splices: list = []
     reset_counts()
-    reqs, server, secs = serve(model, params, device, prompts, slots=FULL_SLOTS,
-                               max_cache=FULL_CACHE, max_new=FULL_NEW, wrap_decode=timed)
+    model.prefill = timed_prefill
+    try:
+        with checked_splices(splices):
+            reqs, server, secs = serve(model, params, device, prompts, slots=FULL_SLOTS,
+                                       max_cache=FULL_CACHE, max_new=FULL_NEW,
+                                       wrap_decode=timed)
+    finally:
+        del model.prefill
     counts = read_counts(SLICE4)
-    print(f"launches while serving: {counts}")
+    # what the serving itself held at its peak: what earlier phases left
+    # allocated is not counted
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    print(f"launches while serving: {counts}; {len(splices)} splices checked, "
+          f"{splices[0][0]} cache leaves each; peak memory {peak} B")
+    check(len(splices) == len(prompts), f"{len(splices)} splices for {len(prompts)} requests")
     check(counts["flash_attention"] == cfg.num_layers * len(prompts),
           f"flash_attention launched {counts['flash_attention']} times, not "
           f"{cfg.num_layers} layers x {len(prompts)} prefills")
@@ -1511,37 +1662,57 @@ def serving_full(dev, cfg=None) -> dict:
           f"the prompt copies did not go through memcpy_words and batch_copy_pages: {counts}")
     m = server.metrics
     ttft = [(len(r.prompt), r.first_token_at - r.arrived_at) for r in reqs]
+    # the time to first token split by request (a request's prefill, splice
+    # and first token come in admission order): the batch-1 prefill, the
+    # splice with its check, and the rest (waiting for a slot, the prompt
+    # copy through the engine, admission)
+    admitted = sorted(reqs, key=lambda r: r.first_token_at)
+    check([n for n, _ in prefill_s] == [len(r.prompt) for r in admitted],
+          f"prefills timed: {[n for n, _ in prefill_s]}")
+    split = [{"prompt": len(r.prompt), "ttft_s": r.first_token_at - r.arrived_at,
+              "prefill_s": p[1], "splice_check_s": sp[1]}
+             for r, p, sp in zip(admitted, prefill_s, splices)]
     decoded = m["decoded_tokens"]
-    out = {"seconds": secs, "ttft_s": ttft, "decode_s": decode_s[0], "decode_steps": decode_s[1],
-           "decoded_tokens": decoded, "decode_tok_s": decoded / decode_s[0],
+    out = {"model": cfg.name, "seconds": secs, "ttft_s": ttft, "ttft_split": split,
+           "decode_s": decode_s[0],
+           "decode_steps": decode_s[1], "decoded_tokens": decoded,
+           "decode_tok_s": decoded / decode_s[0],
            "steps": m["steps"], "copy_bursts": m["copy_bursts"], "launches": counts,
+           "splices_checked": len(splices), "peak_bytes": peak,
            "params": n_params, "param_bytes": n_bytes}
     print(f"served 8 requests in {secs:.3f} s ({m['steps']} steps, {m['copy_bursts']} copy "
           f"bursts); {decoded} decoded tokens in {decode_s[1]} decode steps, "
           f"{decode_s[0]:.3f} s ({decoded / decode_s[0]:.1f} tokens/s); time to first token "
           f"by prompt length: " + ", ".join(f"{n}: {t:.3f} s" for n, t in ttft))
-    out.update(flash_vs_chunked(model, params, prompts[0], dev))
+    print("time to first token, split: " + "; ".join(
+        f"{d['prompt']}: {d['ttft_s']:.4f} s = prefill {d['prefill_s']:.4f} + splice and its "
+        f"check {d['splice_check_s']:.4f} + the rest "
+        f"{d['ttft_s'] - d['prefill_s'] - d['splice_check_s']:.4f}" for d in split))
+    del server
+    out.update(flash_vs_chunked(model, params, {"tokens": torch.from_numpy(prompts[0])[None]},
+                                dev))
     return out
 
 
-def flash_vs_chunked(model, params, prompt, dev) -> dict:
-    """One prompt's prefill logits under "flash" and "chunked" (plain
+def flash_vs_chunked(model, params, batch, dev) -> dict:
+    """One batch's prefill logits under "flash" and "chunked" (plain
     PyTorch), with the model's bf16 weights and with the same weights in
-    f32."""
+    f32.  ``batch`` holds [B, S] tokens (and a VLM's fields)."""
     from repro_torch import tree as ttree
     from repro_torch.models.api import build_model
 
     cfg32 = dataclasses.replace(model.cfg, dtype="float32")
     p32 = ttree.tree_map(lambda t: t.float(), params)
-    toks = torch.from_numpy(prompt)[None].to(dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    bsz, prompt_len = batch["tokens"].shape
     logits = {}
     for kind, cfg, p in (("bf16", model.cfg, params), ("f32", cfg32, p32)):
         for impl in ("flash", "chunked"):
             m = build_model(cfg, remat=False, attn_impl=impl, device=dev)
-            _, logits[kind, impl], _ = m.prefill(p, {"tokens": toks}, FULL_CACHE)
+            _, logits[kind, impl], _ = m.prefill(p, batch, prompt_len)
     del p32
     for key, lg in logits.items():
-        check(bool(torch.isfinite(lg).all()) and lg.shape == (1, model.cfg.vocab_size),
+        check(bool(torch.isfinite(lg).all()) and lg.shape == (bsz, model.cfg.vocab_size),
               f"{key} prefill logits: not finite, or shape {tuple(lg.shape)}")
 
     def gap(a, b):
@@ -1552,8 +1723,9 @@ def flash_vs_chunked(model, params, prompt, dev) -> dict:
            "bf16_noise": gap(("bf16", "chunked"), ("f32", "chunked")),
            "bf16_flash_vs_f32": gap(("bf16", "flash"), ("f32", "chunked")),
            "logits_absmax": float(logits["f32", "chunked"].abs().max()),
-           "same_argmax": len({int(lg.argmax()) for lg in logits.values()}) == 1}
-    print(f"{len(prompt)}-token prefill logits (|logits| up to {out['logits_absmax']:.3f}): "
+           "same_argmax": len({tuple(lg.argmax(-1).tolist()) for lg in logits.values()}) == 1}
+    print(f"{bsz} x {prompt_len}-token prefill logits (|logits| up to "
+          f"{out['logits_absmax']:.3f}): "
           f"f32 flash vs chunked {out['f32_flash_vs_chunked']:.3e}; bf16 flash vs chunked "
           f"{out['bf16_flash_vs_chunked']:.3e}, bf16 noise (chunked bf16 vs f32) "
           f"{out['bf16_noise']:.3e}, flash bf16 vs f32 {out['bf16_flash_vs_f32']:.3e}; "
@@ -1566,6 +1738,141 @@ def flash_vs_chunked(model, params, prompt, dev) -> dict:
     check(out["bf16_flash_vs_f32"] <= BF16_FROM_F32_FACTOR * out["bf16_noise"],
           f"bf16 flash is {out['bf16_flash_vs_f32']} from the f32 model, more than "
           f"{BF16_FROM_F32_FACTOR} x chunked's {out['bf16_noise']}")
+    return out
+
+
+# --------------------------------------------------------------------------- phases 3f and 4g
+#: phase 3f's prompts: each longer than the reduced window of 16 or reaching
+#: past it while decoding, so the ring wraps in prefill and in decode
+GEMMA_SMALL_PROMPTS = (16, 77, 33, 50, 64, 21)
+GEMMA_SMALL_LAYERS, GEMMA_SMALL_NEW = 8, 8
+
+
+@phase("3f serving gemma3 on the card and on the CPU (gemma3-1b.reduced(), 8 layers, f32)")
+def serving_gemma_small(dev) -> dict:
+    """gemma3-1b.reduced() at 8 layers (one period of 5 local layers with a
+    16-token ring and a global one, then 2 local layers) in f32, served as
+    phase 3d serves tinyllama, with every splice checked.  Returns the
+    launches of the card's serving."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_device
+
+    cfg = dataclasses.replace(get_config("gemma3-1b").reduced(),
+                              num_layers=GEMMA_SMALL_LAYERS, dtype="float32")
+    W = cfg.window_size
+    check(max(GEMMA_SMALL_PROMPTS) > W and min(GEMMA_SMALL_PROMPTS) + GEMMA_SMALL_NEW - 1 > W,
+          "phase 3f's ring must wrap in prefill and in decode")
+    splices: list = []
+    out = serve_card_and_cpu(dev, cfg, GEMMA_SMALL_PROMPTS, max_new=GEMMA_SMALL_NEW,
+                             prompt_seed=6, splices=splices,
+                             device=make_device(n_instances=2, policy="least_loaded",
+                                                device=dev))
+    check(len(splices) == 2 * len(GEMMA_SMALL_PROMPTS), f"{len(splices)} splices checked")
+    print(f"{len(splices)} splices checked, {splices[0][0]} cache leaves each")
+    return out
+
+
+#: phase 4g: qwen2-vl-2b, a batch of 2 x 2048 tokens whose positions 1-256
+#: are a 16 x 16 grid of patch embeddings, then 16 greedy decode steps
+VLM_BATCH, VLM_SEQ, VLM_GRID, VLM_NEW = 2, 2048, 16, 16
+
+
+def vlm_batch(cfg, seed: int) -> dict:
+    """CPU tensors: VLM_BATCH x VLM_SEQ tokens, VLM_GRID x VLM_GRID patch
+    embeddings (0.02 x a normal draw) at positions 1 .. VLM_GRID^2 with
+    patch (r, c) at (t, h, w) = (1, 1 + r, 1 + c), the text after them at
+    t = h = w = 1 + VLM_GRID + j, position 0 at (0, 0, 0)."""
+    rng = np.random.default_rng(seed)
+    bsz, seq, grid = VLM_BATCH, VLM_SEQ, VLM_GRID
+    n_patch = grid * grid
+    thw = np.zeros((3, seq), np.int32)
+    r, c = np.divmod(np.arange(n_patch), grid)
+    thw[0, 1:1 + n_patch] = 1
+    thw[1, 1:1 + n_patch] = 1 + r
+    thw[2, 1:1 + n_patch] = 1 + c
+    thw[:, 1 + n_patch:] = 1 + grid + np.arange(seq - 1 - n_patch)
+    return {
+        "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (bsz, seq)).astype(np.int32)),
+        "patch_embeds": torch.from_numpy(
+            (rng.normal(size=(bsz, n_patch, cfg.d_model)) * 0.02).astype(np.float32)),
+        "positions_thw": torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(thw[:, None], (3, bsz, seq)))),
+    }
+
+
+def vlm_rollout(model, params, batch, n_new: int, dev, tokens=None):
+    """Prefill ``batch`` on ``dev`` and decode ``n_new`` - 1 steps, feeding
+    ``tokens`` [n_new, B] (greedy when None).  Returns (the logits of each
+    step, the tokens fed, prefill seconds, decode seconds)."""
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    cache, logits, _ = model.prefill(params, batch, batch["tokens"].shape[1] + n_new)
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    outs, fed = [logits], []
+    t0 = time.perf_counter()
+    for i in range(n_new - 1):
+        tok = (logits.argmax(-1) if tokens is None else tokens[i].to(dev)).to(torch.int32)
+        fed.append(tok.cpu())
+        logits, cache = model.decode_step(params, cache, tok[:, None])
+        outs.append(logits)
+    sync(dev)
+    check(int(cache["lengths"][0]) == batch["tokens"].shape[1] + n_new - 1, "decode lengths")
+    return outs, fed, prefill_s, time.perf_counter() - t0
+
+
+@phase("4g qwen2-vl-2b at full width and depth through the model API (bf16, flash)")
+def vlm_full(dev) -> dict:
+    """qwen2-vl-2b (28 layers, M-RoPE sections (16, 24, 24)) through
+    ``prefill`` and ``decode_step``: ``vlm_batch``'s 2 x 2048 tokens with
+    16 x 16 patch embeddings, 16 greedy steps; flash launches once a layer
+    in the prefill; the prefill's logits under "flash" against "chunked";
+    then the same batch at ``reduced()`` size in f32 on the card and on the
+    CPU (prefill and teacher-forced decode logits within SERVE_F32_TOL)."""
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    cfg = get_config("qwen2-vl-2b")
+    sync(dev)
+    base = torch.cuda.memory_allocated(dev)
+    model = build_model(cfg, remat=False, attn_impl="flash", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(3))
+    n_params = sum(t.numel() for t in ttree.leaves(params))
+    batch = vlm_batch(cfg, 7)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    logits, toks, prefill_s, decode_s = vlm_rollout(model, params, batch, VLM_NEW, dev)
+    counts = read_counts(("flash_attention",))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(all(bool(torch.isfinite(lg).all()) and lg.shape == (VLM_BATCH, cfg.vocab_size)
+              for lg in logits), "qwen2-vl logits: not finite, or of another shape")
+    check(counts["flash_attention"] == cfg.num_layers,
+          f"flash_attention launched {counts['flash_attention']} times in one prefill, not "
+          f"{cfg.num_layers}")
+    out = {"params": n_params, "prefill_s": prefill_s, "decode_s": decode_s,
+           "decode_tok_s": VLM_BATCH * (VLM_NEW - 1) / decode_s, "peak_bytes": peak,
+           "launches": counts}
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params} params; "
+          f"prefill of {VLM_BATCH} x {VLM_SEQ} tokens ({VLM_GRID ** 2} patches) {prefill_s:.3f} s, "
+          f"{VLM_NEW - 1} decode steps {decode_s:.3f} s; launches {counts}; peak memory {peak} B")
+    out.update(flash_vs_chunked(model, params, batch, dev))
+    del model, params, logits
+    # the same batch at reduced() size in f32, on the card and on the CPU
+    small = dataclasses.replace(cfg.reduced(), dtype="float32")
+    small_batch = vlm_batch(small, 7)
+    card = build_model(small, remat=False, attn_impl="flash", device=dev)
+    p_card = card.init(torch.Generator(device=dev).manual_seed(4))
+    on_card, fed, _, _ = vlm_rollout(card, p_card, small_batch, VLM_NEW, dev)
+    host_model = build_model(small, remat=False, attn_impl="flash", device="cpu")
+    on_cpu, _, _, _ = vlm_rollout(host_model, ttree.tree_map(lambda t: t.cpu(), p_card),
+                                  small_batch, VLM_NEW, torch.device("cpu"), tokens=fed)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(on_card, on_cpu))
+    check(all(torch.allclose(a.cpu(), b, **SERVE_F32_TOL) for a, b in zip(on_card, on_cpu)),
+          f"reduced qwen2-vl in f32: card and CPU logits differ by {err}")
+    print(f"reduced qwen2-vl (f32), the same batch: prefill and {VLM_NEW - 1} decode steps' "
+          f"logits max |card - CPU| {err:.3e}")
+    out["reduced_card_vs_cpu"] = err
     return out
 
 
@@ -1979,7 +2286,66 @@ def times_4(dev, gen) -> list:
               f"{cold_ms(lambda: fa.flash_attention(qh, kh, vh), 20, flush):.4f} ms, "
               f"SDPA {cold_ms(sdpa(qh, kh, vh), 20, flush):.4f} ms, "
               f"bound {bound_other:.4f} ms (operations)")
+    row["slice9_shapes"] = [flash_at(dev, gen, flush, name, *shape, gqa=gqa)
+                            for name, shape in SLICE9_FLASH_SHAPES]
     return [row]
+
+
+#: phase 5d's slice-9 prefill shapes: (B, S, H, KV, hd, window), causal
+SLICE9_FLASH_SHAPES = (("gemma3-1b prefill", (1, 2048, 4, 1, 256, 1024)),
+                       ("qwen2-vl-2b prefill", (1, 2048, 12, 2, 128, 0)))
+
+
+def flash_at(dev, gen, flush, name, B, S, H, KV, hd, window, *, gqa: bool) -> dict:
+    """The kernel at one causal bf16 shape beside its bound (over the (q, k)
+    pairs the mask leaves visible), its plain version and
+    ``scaled_dot_product_attention``: ``is_causal`` without a window; with
+    one an explicit boolean ``attn_mask``, which SDPA's flash backend does
+    not take, so it runs another of its backends."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = flash_inputs(gen, dev, B, S, S, H, KV, hd, torch.bfloat16)
+    kw = dict(causal=True, window=window)
+    pos = torch.arange(S, device=dev)
+    mask = fa.mask_block(pos, pos, causal=True, window=window, n_meta=0)
+    pairs = B * int(mask.sum())
+    flops = 4 * H * hd * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops = flops / H100_SXM_BF16_OPS * 1e3
+    t_bytes = nbytes / mem_bps() * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if not gqa:
+        kt, vt = kt.repeat_interleave(H // KV, 1), vt.repeat_interleave(H // KV, 1)
+    lib_kw = dict(enable_gqa=True) if gqa else {}
+    if window:
+        lib_kw["attn_mask"] = mask
+        call = "F.scaled_dot_product_attention(attn_mask=<bool [S, S]>)"
+    else:
+        lib_kw["is_causal"] = True
+        call = "F.scaled_dot_product_attention(is_causal=True)"
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+
+    got = fa.flash_attention(q, k, v, **kw)
+    lib_err = float((lib().transpose(1, 2).float() - got.float()).abs().max())
+    plain_err = float((fa.flash_attention_plain(q, k, v, **kw).float() - got.float())
+                      .abs().max())
+    out = {"name": name, "shape": f"q [{B}, {S}, {H}, {hd}], k/v [{B}, {S}, {KV}, {hd}] bf16, "
+                                  f"causal, window {window}",
+           "ms": cold_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, flush),
+           "plain_ms": cold_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 5, flush),
+           "library_ms": cold_ms(lib, 20, flush), "library_call": call,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops, "visible_pairs": pairs,
+           "max_abs_err_library": lib_err, "max_abs_err_plain": plain_err}
+    print(f"  flash_attention at the {name} shape ({out['shape']}): {out['ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops} FLOP over {pairs} visible pairs, {nbytes} B), "
+          f"plain {out['plain_ms']:.4f} ms, library {out['library_ms']:.4f} ms ({call}); "
+          f"max |kernel - library| {lib_err:.3e}, |kernel - plain| {plain_err:.3e}")
+    return out
 
 
 # --------------------------------------------------------------------------- main
@@ -2256,7 +2622,7 @@ def training_full(dev, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_S
 
     cfg = cfg or get_config("tinyllama-1.1b")
     sync(dev)
-    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    base = torch.cuda.memory_allocated(dev)
     model = build_model(cfg, remat=True, attn_impl="flash", device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(2))
     opt = AdamW(lr=lr)
@@ -2264,8 +2630,7 @@ def training_full(dev, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_S
     step_fn = make_train_step(model, opt)
     n_params = sum(t.numel() for t in ttree.leaves(params))
     prefetch = Prefetcher(SyntheticLMDataset(cfg, batch, seq, seed=0), device=dev)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     losses, secs = [], []
     try:
@@ -2280,7 +2645,7 @@ def training_full(dev, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_S
     counts = read_counts(("flash_attention",))
     # the training's own peak: what earlier phases left allocated is not
     # counted
-    peak = torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda" else 0
+    peak = torch.cuda.max_memory_allocated(dev) - base
     profile = step_profile(lambda: step_fn(params, opt_state, b), dev)
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params} params "
           f"({cfg.dtype}); losses {losses}; seconds a step {secs}; flash launches "
@@ -2498,6 +2863,18 @@ def run() -> int:
           f"a kernel of the slice-4 main path never launched in phase 3d: {counts_3d}")
     full = serving_full(dev)  # sets the counts to 0 itself, reads them after serving
     counts4 = full["launches"]
+    # slice 9: gemma3 and the VLM frontend; each phase sets the counts to 0
+    # just before its main path and reads them just after it
+    gemma_small = serving_gemma_small(dev)
+    counts_3f = gemma_small["launches"]
+    print(f"launches on the slice-9 main path at the small size (phase 3f): {counts_3f}")
+    check(counts_3f["flash_attention"] > 0 and counts_3f["memcpy_words"] > 0,
+          f"phase 3f did not launch flash_attention and memcpy_words: {counts_3f}")
+    gemma = serving_gemma(dev)
+    print(f"launches while serving gemma3-1b (phase 4f): {gemma['launches']}")
+    vlm = vlm_full(dev)
+    print(f"launches of qwen2-vl-2b's prefill and decode (phase 4g): {vlm['launches']}")
+    check(vlm["launches"]["flash_attention"] > 0, "phase 4g did not launch flash_attention")
     reset_counts()
     traced = traced_main_path(dev, gen)
     sync(dev)
@@ -2526,6 +2903,12 @@ def run() -> int:
     print("serving, tinyllama-1.1b.reduced() f32 (phase 3d): " + json.dumps(small))
     print("serving, tinyllama-1.1b full width and depth (phase 4d): "
           + json.dumps({k: v for k, v in full.items() if k != "launches"}))
+    print("serving, gemma3-1b.reduced() at 8 layers f32 (phase 3f): " + json.dumps(gemma_small))
+    print("serving, gemma3-1b full width and depth (phase 4f): "
+          + json.dumps({k: v for k, v in gemma.items() if k != "launches"}))
+    print("qwen2-vl-2b full width and depth, prefill and decode (phase 4g): " + json.dumps(vlm))
+    print("flash_attention at the slice-9 prefill shapes (phase 5d): "
+          + json.dumps(rows["flash_attention"]["slice9_shapes"]))
     print("flash backward against the chunked path (phase 2e): " + json.dumps(bwd))
     print("traced main path (phase 3e): " + json.dumps(
         {"host_free": traced["host_free"], "round_trip_4k_s": traced["round_trip_4k_s"],
@@ -2548,6 +2931,7 @@ def run() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "plain_shape": r["plain_shape"],
             **({"library_call": r["library_call"]} if "library_call" in r else {}),
+            **({"slice9_shapes": r["slice9_shapes"]} if "slice9_shapes" in r else {}),
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -186,7 +186,11 @@ class CheckpointManager:
     def save(self, step: int, tree, *, force_full: bool = False):
         self.wait()  # one in-flight save at a time
         leaves = [(k, _host_leaf(v)) for k, v in _tree.flatten_with_names(tree)]
-        is_full = force_full or self._base is None or (self._save_count % self.cfg.full_every == 0)
+        # a second save of the step that holds the last full snapshot is full
+        # too: as a delta against itself, its publish would delete the base
+        # files it points at (the JAX package loses the step there)
+        is_full = (force_full or self._base is None or step == self._base_step
+                   or self._save_count % self.cfg.full_every == 0)
         self._save_count += 1
 
         def work():

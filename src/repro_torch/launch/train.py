@@ -91,14 +91,7 @@ def train(args) -> int:
                     )
         finally:
             prefetch.stop()
-        if args.steps % args.ckpt_every:
-            # The JAX package saves here unconditionally.  When the loop's
-            # ckpt_every save has just written this step as a full snapshot,
-            # a second save is a delta against itself that deletes its own
-            # base files and leaves the step unrestorable.  This covers only
-            # that case: the manager still loses any step saved twice
-            # (ROADMAP.md, queue 3).
-            ckpt.save(args.steps, {"params": params, "opt": opt_state})
+        ckpt.save(args.steps, {"params": params, "opt": opt_state})
         ckpt.wait()
         print(f"[train] done; first loss {losses[0]:.4f} last loss {losses[-1]:.4f}; "
               f"ckpt stats {ckpt.stats}")

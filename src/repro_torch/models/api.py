@@ -41,16 +41,28 @@ def build_model(cfg: ModelConfig, mesh=None, moe_dispatch: str = "dense",
 
 def make_batch(cfg: ModelConfig, bsz: int, seq: int, gen: torch.Generator,
                kind: str = "train") -> Dict[str, Any]:
-    """Concrete small batch, drawn from ``gen`` on the generator's device."""
-    if cfg.vlm is not None or cfg.encoder is not None:
-        raise NotImplementedError("VLM and encoder-decoder batches are not ported yet "
+    """Concrete small batch, drawn from ``gen`` on the generator's device.
+    A VLM's batch adds patch embeddings [B, min(num_patches, S - 2), D]
+    (they replace the tokens from position 1 and are left out of the loss)
+    and ``positions_thw`` [3, B, S], the sequence index in each stream."""
+    if cfg.encoder is not None:
+        raise NotImplementedError("encoder-decoder batches are not ported yet "
                                   "(ROADMAP.md, queue 1, item 11: the other families)")
+    dev = gen.device
     batch: Dict[str, Any] = {
         "tokens": torch.randint(0, cfg.vocab_size, (bsz, seq), generator=gen,
-                                device=gen.device, dtype=torch.int32)
+                                device=dev, dtype=torch.int32)
     }
     if kind == "train":
-        batch["loss_mask"] = torch.ones((bsz, seq), dtype=torch.float32, device=gen.device)
+        batch["loss_mask"] = torch.ones((bsz, seq), dtype=torch.float32, device=dev)
+    if cfg.vlm is not None:
+        npch = min(cfg.vlm.num_patches, max(seq - 2, 1))
+        batch["patch_embeds"] = torch.randn((bsz, npch, cfg.d_model), generator=gen,
+                                            device=dev).to(getattr(torch, cfg.dtype)) * 0.02
+        pos = torch.arange(seq, dtype=torch.int32, device=dev)[None].expand(bsz, seq)
+        batch["positions_thw"] = torch.stack([pos, pos, pos])
+        if kind == "train":
+            batch["loss_mask"][:, 1:1 + npch] = 0.0
     return batch
 
 

@@ -1,4 +1,4 @@
-"""Transformer block definitions (the dense family).
+"""Transformer block definitions (the dense family, gemma3's local windows).
 
 Each block is a pair of plain functions:
 
@@ -8,14 +8,15 @@ Each block is a pair of plain functions:
 ``mode`` is "train", "prefill" or "decode".  Caches are dicts of tensors;
 "train" writes none, "prefill" writes a fresh cache and "decode" updates
 one token IN PLACE (the reference returns new arrays; its server
-donates the old ones, so nothing reads them again).  The MoE, SSM and hybrid
-blocks are not here yet; the local-window ring cache (gemma3, hymba) raises
-``NotImplementedError``.
+donates the old ones, so nothing reads them again).  A "local" layer with a
+window keeps a ring cache of ``n_meta + window`` slots with each slot's
+absolute position (-1: empty).  The MoE, SSM and hybrid blocks are not here
+yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -26,11 +27,6 @@ from repro_torch.models import layers as L
 def not_ported(what: str) -> NotImplementedError:
     """``what`` is not ported yet; ROADMAP.md's queue 1 lists it."""
     return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1)")
-
-
-def _check_global(layer_type: str, ctx: "Ctx") -> None:
-    if layer_type == "local" and ctx.window > 0:
-        raise not_ported("the local-window ring cache (gemma3, hymba)")
 
 
 @dataclasses.dataclass
@@ -61,29 +57,42 @@ class Ctx:
 
 
 # --------------------------------------------------------------------------- init helpers
-def _dense(gen: torch.Generator, shape, dtype, n: Optional[int] = None, scale=None):
+#: leading stack dims of a parameter: None (one layer), n layers, or a
+#: tuple such as (periods, locals a period)
+Stack = Optional[Union[int, Tuple[int, ...]]]
+
+
+def _full(shape, n: Stack) -> tuple:
+    lead = () if n is None else (n,) if isinstance(n, int) else tuple(n)
+    return lead + tuple(shape)
+
+
+def _dense(gen: torch.Generator, shape, dtype, n: Stack = None, scale=None):
     """Normal weights scaled by fan_in ** -0.5, made on the generator's
-    device; ``n`` stacks n layers' worth in one draw."""
+    device; ``n`` stacks that many layers' worth in one draw."""
     scale = scale if scale is not None else shape[0] ** -0.5
-    full = tuple(shape) if n is None else (n, *shape)
-    return (torch.randn(full, generator=gen, device=gen.device) * scale).to(dtype)
+    return (torch.randn(_full(shape, n), generator=gen, device=gen.device) * scale).to(dtype)
 
 
-def _zeros(shape, dtype, n: Optional[int], device):
-    return torch.zeros(tuple(shape) if n is None else (n, *shape), dtype=dtype, device=device)
+def _zeros(shape, dtype, n: Stack, device):
+    return torch.zeros(_full(shape, n), dtype=dtype, device=device)
 
 
-def init_attn_params(gen, cfg: ModelConfig, dtype, n: Optional[int] = None) -> dict:
+def init_attn_params(gen, cfg: ModelConfig, dtype, n: Stack = None) -> dict:
     H, KV, hd, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
-    return {
+    p = {
         "wq": _dense(gen, (D, H * hd), dtype, n),
         "wk": _dense(gen, (D, KV * hd), dtype, n),
         "wv": _dense(gen, (D, KV * hd), dtype, n),
         "wo": _dense(gen, (H * hd, D), dtype, n),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = _zeros((hd,), dtype, n, gen.device)
+        p["k_norm"] = _zeros((hd,), dtype, n, gen.device)
+    return p
 
 
-def init_mlp_params(gen, d_model: int, d_ff: int, dtype, n: Optional[int] = None) -> dict:
+def init_mlp_params(gen, d_model: int, d_ff: int, dtype, n: Stack = None) -> dict:
     return {
         "w1": _dense(gen, (d_model, d_ff), dtype, n),
         "w3": _dense(gen, (d_model, d_ff), dtype, n),
@@ -92,31 +101,40 @@ def init_mlp_params(gen, d_model: int, d_ff: int, dtype, n: Optional[int] = None
 
 
 # --------------------------------------------------------------------------- attention sub-block
+def _is_ring(layer_type: str, ctx: Ctx) -> bool:
+    return layer_type == "local" and ctx.window > 0
+
+
 def _init_attn_cache(cfg: ModelConfig, B: int, layer_type: str, ctx: Ctx, dtype,
                      device) -> dict:
-    _check_global(layer_type, ctx)
-    shape = (B, ctx.max_cache_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    Sc = ctx.n_meta + ctx.window if _is_ring(layer_type, ctx) else ctx.max_cache_len
+    shape = (B, Sc, cfg.num_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if _is_ring(layer_type, ctx):
+        cache["pos"] = torch.full((B, Sc), -1, dtype=torch.int32, device=device)
+    return cache
 
 
 def attn_sub(x: torch.Tensor, p: dict, ctx: Ctx, layer_type: str, mode: str,
              cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention sub-block (no residual / norm).  x [B, S, D] or [B, 1, D]."""
-    _check_global(layer_type, ctx)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
     cfg = ctx.cfg
     B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    q, k, v = L.project_qkv(x, p, cfg)
+    qk_p = {"q_norm": p["q_norm"], "k_norm": p["k_norm"]} if cfg.qk_norm else None
+    q, k, v = L.project_qkv(x, p, cfg, qk_norm_p=qk_p)
     cos, sin = ctx.rope(layer_type)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
 
+    window = ctx.window if layer_type == "local" else 0
+
     if mode in ("train", "prefill"):
-        o = L.attention_trainable(q, k, v, causal=ctx.causal, n_meta=ctx.n_meta,
-                                  impl=ctx.attn_impl)
+        o = L.attention_trainable(q, k, v, causal=ctx.causal, window=window,
+                                  n_meta=ctx.n_meta, impl=ctx.attn_impl)
         new_cache = None
         if mode == "prefill":
             new_cache = _write_prefill_cache(cfg, ctx, layer_type, k, v)
@@ -130,25 +148,52 @@ def attn_sub(x: torch.Tensor, p: dict, ctx: Ctx, layer_type: str, mode: str,
 
 def _write_prefill_cache(cfg: ModelConfig, ctx: Ctx, layer_type: str, k, v) -> dict:
     B, S = k.shape[0], k.shape[1]
-    ck = torch.zeros((B, ctx.max_cache_len, k.shape[2], k.shape[3]), dtype=k.dtype,
-                     device=k.device)
-    cv = torch.zeros_like(ck)
-    ck[:, :S] = k
-    cv[:, :S] = v
-    return {"k": ck, "v": cv}
+    cache = _init_attn_cache(cfg, B, layer_type, ctx, k.dtype, k.device)
+    ck, cv = cache["k"], cache["v"]
+    if not _is_ring(layer_type, ctx):
+        ck[:, :S] = k
+        cv[:, :S] = v
+        return cache
+    n_meta, W = ctx.n_meta, ctx.window
+    cpos = cache["pos"]
+    if n_meta > 0:
+        ck[:, :n_meta] = k[:, :n_meta]
+        cv[:, :n_meta] = v[:, :n_meta]
+        cpos[:, :n_meta] = torch.arange(n_meta, dtype=torch.int32, device=k.device)
+    # the last `take` body tokens, each at slot n_meta + (pos - n_meta) % W
+    take = min(W, S - n_meta)
+    pos = torch.arange(S - take, S, device=k.device)
+    slots = n_meta + (pos - n_meta) % W
+    ck[:, slots] = k[:, S - take:]
+    cv[:, slots] = v[:, S - take:]
+    cpos[:, slots] = pos.to(torch.int32)
+    return cache
 
 
 def _decode_cache_update(cfg, ctx: Ctx, layer_type: str, cache: dict, k1, v1):
     """k1, v1 [B, KV, hd] for the current token at position ctx.lengths.
 
-    Writes in place.  A position past the cache's end (an idle slot keeps
-    counting up) is dropped, as JAX drops an out-of-range ``.at[].set``: the
-    row is rewritten with what it holds, with no host sync and no
-    out-of-range index on the card."""
+    Writes in place.  A ring cache writes slot n_meta + (pos - n_meta) % W
+    (a meta position its own slot) and attends to the slots whose position
+    is within the window, or a meta token.  In a full cache a position past
+    the end (an idle slot keeps counting up) is dropped, as JAX drops an
+    out-of-range ``.at[].set``: the row is rewritten with what it holds,
+    with no host sync and no out-of-range index on the card."""
     ck, cv = cache["k"], cache["v"]
     B, Sc = ck.shape[0], ck.shape[1]
     bidx = torch.arange(B, device=ck.device)
     pos = ctx.lengths.long()
+    if _is_ring(layer_type, ctx):
+        n_meta, W = ctx.n_meta, ctx.window
+        slot = torch.where(pos < n_meta, pos, n_meta + (pos - n_meta) % W)
+        cpos = cache["pos"]
+        ck[bidx, slot] = k1.to(ck.dtype)
+        cv[bidx, slot] = v1.to(cv.dtype)
+        cpos[bidx, slot] = pos.to(cpos.dtype)
+        in_window = (pos[:, None] - cpos) < W
+        is_meta = (cpos >= 0) & (cpos < n_meta)
+        valid = (cpos >= 0) & (cpos <= pos[:, None]) & (in_window | is_meta)
+        return {"k": ck, "v": cv, "pos": cpos}, ck, cv, valid
     inside = (pos < Sc)[:, None, None]
     at = pos.clamp(0, Sc - 1)
     ck[bidx, at] = torch.where(inside, k1.to(ck.dtype), ck[bidx, at])
@@ -159,7 +204,7 @@ def _decode_cache_update(cfg, ctx: Ctx, layer_type: str, cache: dict, k1, v1):
 
 # --------------------------------------------------------------------------- full blocks
 def init_dense_layer(gen, cfg: ModelConfig, dtype, d_ff: Optional[int] = None,
-                     n: Optional[int] = None) -> dict:
+                     n: Stack = None) -> dict:
     return {
         "ln1": _zeros((cfg.d_model,), dtype, n, gen.device),
         "ln2": _zeros((cfg.d_model,), dtype, n, gen.device),

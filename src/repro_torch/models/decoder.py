@@ -1,21 +1,29 @@
 """Decoder-stack model assembly: the dense family (llama-style: tinyllama,
-deepseek-67b), the JAX package's ``repro.models.decoder`` in PyTorch.
+deepseek-67b), gemma3 (periodic local:global attention, qk-norm, tied
+embeddings) and the VLM backbone (qwen2-vl: M-RoPE, patch embeddings), the
+JAX package's ``repro.models.decoder`` in PyTorch.
 
-``build_segments`` is the reference's for every family.  A dense config is
-one "scan" segment: homogeneous layers with stacked [L, ...] parameters,
-walked here by a Python loop.  The other families (gemma3's local windows,
-MoE, SSM, hybrid, VLM) raise ``NotImplementedError`` when the model is
-built; ROADMAP.md's queue 1 lists them.
+``build_segments`` is the reference's for every family.  The stack is a
+list of segments, walked here by Python loops: a "scan" segment holds
+homogeneous units with stacked [n, ...] parameters (a dense layer, or a
+gemma3 period of 5 local layers and a global one, whose locals stack as
+[n, 5, ...]); an "unroll" segment is a list of per-layer dicts (gemma3's
+trailing partial period).  MoE, SSM, hybrid and encoder-decoder raise
+``NotImplementedError`` when the model is built; ROADMAP.md's queue 1
+lists them.
 
 Entry points keep the reference's signatures and trees: ``init(gen)``,
 ``loss(params, batch)``, ``prefill(params, batch, max_cache_len)``,
 ``init_cache(bsz, max_cache_len)`` and ``decode_step(params, cache,
-tokens)``, with the cache
-``{"segments": [{"k": [L, B, S, KV, hd], "v": ...}], "lengths": [B]}``.
+tokens)``.  A dense model's cache is
+``{"segments": [{"k": [L, B, S, KV, hd], "v": ...}], "lengths": [B]}``;
+a gemma3 period's is ``{"locals": {"k": [n, 5, B, W, KV, hd], "v": ...,
+"pos": [n, 5, B, W]}, "global": {"k": [n, B, S, KV, hd], "v": ...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -81,18 +89,16 @@ def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
     return [SegmentDef("scan", "dense", cfg.num_layers, lt)]
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    """Raise for what only the families not ported yet use."""
-    if cfg.family != "dense":
-        raise B.not_ported(f"the {cfg.family} family ({cfg.name})")
-    if (cfg.attn_pattern != "global" or cfg.qk_norm or cfg.tie_embeddings
-            or cfg.rope_theta_global):
-        raise B.not_ported(f"gemma3's local windows, qk-norm, tied embeddings and global "
-                           f"rope theta ({cfg.name})")
+def _check_family(cfg: ModelConfig) -> None:
+    """Raise for the families not ported yet."""
+    if cfg.family in ("moe", "ssm", "hybrid", "audio"):
+        raise NotImplementedError(f"the {cfg.family} family ({cfg.name}) is not ported to "
+                                  f"repro_torch yet (ROADMAP.md, queue 1, item 11: the other "
+                                  f"families)")
 
 
 def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked [L, ...] parameter or cache dict (views)."""
+    """Unit ``i`` of a stacked [n, ...] parameter or cache dict (views)."""
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i]) for k, v in tree.items()}
 
 
@@ -101,21 +107,54 @@ def _stack(trees: List[dict]) -> dict:
                 else torch.stack([t[k] for t in trees])) for k in trees[0]}
 
 
+def _seg_layers(seg: SegmentDef, p_seg, c_seg) -> List[Tuple[dict, str, Optional[dict]]]:
+    """(params, layer type, cache) of each layer of a segment, in stack
+    order; the params and caches are views of the segment's tensors."""
+    if seg.kind == "unroll":
+        return [(p_seg[i], seg.layer_types[i], None if c_seg is None else c_seg[i])
+                for i in range(seg.n)]
+    if seg.unit == "dense":
+        return [(_layer(p_seg, i), seg.layer_types[i],
+                 None if c_seg is None else _layer(c_seg, i)) for i in range(seg.n)]
+    out = []  # gemma_period: the locals, then the global, of each period
+    for i in range(seg.n):
+        p_u = _layer(p_seg, i)
+        c_u = None if c_seg is None else _layer(c_seg, i)
+        for j in range(len(seg.layer_types) - 1):
+            out.append((_layer(p_u["locals"], j), "local",
+                        None if c_u is None else _layer(c_u["locals"], j)))
+        out.append((p_u["global"], "global", None if c_u is None else c_u["global"]))
+    return out
+
+
+def _seg_cache(seg: SegmentDef, caches: List[dict]):
+    """A segment's cache from its layers' caches, in ``_seg_layers``'
+    order: a list (unroll), stacked [n, ...] (scan), or a gemma3 period's
+    {"locals": [n, 5, ...], "global": [n, ...]}."""
+    if seg.kind == "unroll":
+        return caches
+    if seg.unit == "dense":
+        return _stack(caches)
+    per = len(seg.layer_types)
+    return _stack([{"locals": _stack(caches[i * per:(i + 1) * per - 1]),
+                    "global": caches[(i + 1) * per - 1]} for i in range(seg.n)])
+
+
 # --------------------------------------------------------------------------- model
 class DecoderModel:
     """``device`` is where the parameters and caches live: None means CUDA
     (raising where no card is present), ``"cpu"`` the CPU.  ``remat``
     checkpoints each layer of the training forward (each group of
-    ``remat_group`` layers when that divides the depth), as the reference's
-    ``jax.checkpoint``; ``moe_dispatch`` is kept for the reference's
-    signature and changes nothing here."""
+    ``remat_group`` layers of a dense scan segment when that divides its
+    depth), as the reference's ``jax.checkpoint``; ``moe_dispatch`` is kept
+    for the reference's signature and changes nothing here."""
 
     def __init__(self, cfg: ModelConfig, mesh=None, moe_dispatch: str = "dense",
                  remat: bool = True, attn_impl: str = "chunked", tp_comm: str = "auto",
                  remat_group: int = 1, device=None):
         if mesh is not None:
             raise B.not_ported("a mesh (distributed/)")
-        _check_dense(cfg)
+        _check_family(cfg)
         if attn_impl not in ("chunked", "flash"):
             raise ValueError(f"attn_impl must be 'chunked' or 'flash', got {attn_impl!r}")
         self.cfg = cfg
@@ -125,7 +164,7 @@ class DecoderModel:
         self.attn_impl = attn_impl
         self.tp_comm = tp_comm
         self.remat_group = remat_group
-        self.segments = build_segments(cfg)  # one dense scan segment
+        self.segments = build_segments(cfg)
         self.dtype = getattr(torch, cfg.dtype)
         self.device = resolve_device(device)
 
@@ -133,115 +172,183 @@ class DecoderModel:
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters drawn from ``gen`` (on the generator's device),
         placed on the model's device."""
-        cfg, dtype = self.cfg, self.dtype
+        cfg, dtype, dev = self.cfg, self.dtype, gen.device
+
+        def normal(*shape):
+            return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+
         params: Dict[str, Any] = {
-            "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                                  device=gen.device) * 0.02).to(dtype),
-            "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device),
-            "segments": [B.init_dense_layer(gen, cfg, dtype, n=self.segments[0].n)],
-            "unembed": (torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
-                                    device=gen.device) * 0.02).to(dtype),
+            "embed": normal(cfg.vocab_size, cfg.d_model),
+            "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+            "segments": [],
         }
+        for seg in self.segments:
+            if seg.kind == "unroll":
+                params["segments"].append([B.init_dense_layer(gen, cfg, dtype, d_ff=seg.d_ff)
+                                           for _ in range(seg.n)])
+            elif seg.unit == "dense":
+                params["segments"].append(B.init_dense_layer(gen, cfg, dtype, d_ff=seg.d_ff,
+                                                             n=seg.n))
+            else:  # gemma_period
+                nl = len(seg.layer_types) - 1
+                params["segments"].append({
+                    "locals": B.init_dense_layer(gen, cfg, dtype, n=(seg.n, nl)),
+                    "global": B.init_dense_layer(gen, cfg, dtype, n=seg.n)})
+        if not cfg.tie_embeddings:
+            params["unembed"] = normal(cfg.d_model, cfg.vocab_size)
         return _to(params, self.device)
 
     # ------------------------------------------------------------------ ctx
-    def _make_ctx(self, positions, max_cache_len: int = 0, lengths=None) -> B.Ctx:
-        cos, sin = L.rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
-        return B.Ctx(cfg=self.cfg, mesh=self.mesh, cos_local=cos, sin_local=sin,
-                     lengths=lengths, moe_dispatch=self.moe_dispatch,
-                     max_cache_len=max_cache_len, window=self.cfg.window_size,
-                     remat=self.remat, attn_impl=self.attn_impl, tp_comm=self.tp_comm)
+    def _make_ctx(self, positions, max_cache_len: int = 0, lengths=None,
+                  positions_thw=None) -> B.Ctx:
+        cfg = self.cfg
+        if cfg.vlm is not None and positions_thw is not None:
+            cos, sin = L.mrope_cos_sin(positions_thw, cfg.head_dim, cfg.rope_theta,
+                                       cfg.vlm.mrope_sections)
+        else:
+            cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        ctx = B.Ctx(cfg=cfg, mesh=self.mesh, cos_local=cos, sin_local=sin,
+                    lengths=lengths, moe_dispatch=self.moe_dispatch,
+                    max_cache_len=max_cache_len, window=cfg.window_size,
+                    remat=self.remat, attn_impl=self.attn_impl, tp_comm=self.tp_comm)
+        if cfg.rope_theta_global:
+            ctx.cos_global, ctx.sin_global = L.rope_cos_sin(positions, cfg.head_dim,
+                                                            cfg.rope_theta_global)
+        return ctx
 
-    def _embed(self, params, tokens) -> torch.Tensor:
-        return params["embed"][tokens.long()].to(self.dtype)
+    # ------------------------------------------------------------------ embedding
+    def _embed_tokens(self, params, tokens) -> torch.Tensor:
+        x = params["embed"][tokens.long()].to(self.dtype)
+        if self.cfg.attn_pattern == "gemma3":
+            # gemma scales embeddings by sqrt(d_model) rounded to the model's
+            # dtype first, as JAX does (33.94 is 34.0 in bf16)
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype,
+                                 device=x.device)
+        return x
+
+    def _embed(self, params, tokens, batch) -> torch.Tensor:
+        x = self._embed_tokens(params, tokens)
+        if self.cfg.vlm is not None and "patch_embeds" in batch:
+            # the patch embeddings replace the tokens from position 1 (JAX's
+            # dynamic_update_slice, which moves the start back to fit)
+            pe = batch["patch_embeds"].to(self.dtype)
+            at = max(0, min(1, x.shape[1] - pe.shape[1]))
+            x = torch.cat([x[:, :at], pe, x[:, at + pe.shape[1]:]], dim=1)
+        return x
+
+    def _unembed_w(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embed"], True
+        return params["unembed"], False
 
     # ------------------------------------------------------------------ stack walk
     def _run_stack(self, params, x, ctx: B.Ctx, mode: str, cache=None):
         """Returns (x, aux_total, new_cache).  Train returns no cache and,
         with ``ctx.remat``, keeps only each layer's (or group's) input for
         the backward, which replays the layer (flash kernel included).
-        Prefill stacks the layers' caches into [L, ...]; decode updates each
-        layer's view of the stacked cache in place."""
-        seg = self.segments[0]
-        p_seg = params["segments"][0]
-        c_seg = cache["segments"][0] if cache is not None else None
+        Prefill builds each segment's cache from its layers'; decode updates
+        each layer's view of the cache in place."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        if mode == "train":
-            def run(xx, aux, lo, hi):
-                for li in range(lo, hi):
-                    xx, a, _ = B.apply_dense(xx, _layer(p_seg, li), ctx,
-                                             seg.layer_types[li], "train", None)
-                    aux = aux + a
-                return xx, aux
+        cache_segs = cache["segments"] if cache is not None else [None] * len(self.segments)
+        new_segs = []
+        for seg, p_seg, c_seg in zip(self.segments, params["segments"], cache_segs):
+            layers = _seg_layers(seg, p_seg, c_seg)
+            if mode == "train":
+                def run(xx, aux, chunk):
+                    for p_l, lt, _ in chunk:
+                        xx, a, _ = B.apply_dense(xx, p_l, ctx, lt, "train", None)
+                        aux = aux + a
+                    return xx, aux
 
-            group = self.remat_group
-            if not (ctx.remat and group > 1 and seg.n % group == 0):
-                # nested remat (group > 1) saves only every group-th
-                # residual; otherwise one checkpoint per layer
-                group = 1
-            for lo in range(0, seg.n, group):
-                if ctx.remat:
-                    x, aux_total = _ckpt.checkpoint(run, x, aux_total, lo, lo + group,
-                                                    use_reentrant=False)
-                else:
-                    x, aux_total = run(x, aux_total, lo, lo + group)
-            x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-            return x, aux_total, None
-        caches = []
-        for li in range(seg.n):
-            c_l = None if c_seg is None else _layer(c_seg, li)
-            x, a, nc = B.apply_dense(x, _layer(p_seg, li), ctx, seg.layer_types[li], mode, c_l)
-            aux_total = aux_total + a
-            caches.append(nc)
+                group = self.remat_group
+                if not (ctx.remat and group > 1 and seg.kind == "scan" and seg.unit == "dense"
+                        and seg.n % group == 0):
+                    # nested remat (group > 1) saves only every group-th
+                    # residual; otherwise one checkpoint per layer
+                    group = 1
+                for lo in range(0, len(layers), group):
+                    chunk = layers[lo:lo + group]
+                    if ctx.remat:
+                        x, aux_total = _ckpt.checkpoint(run, x, aux_total, chunk,
+                                                        use_reentrant=False)
+                    else:
+                        x, aux_total = run(x, aux_total, chunk)
+                new_segs.append(None)
+                continue
+            caches = []
+            for p_l, lt, c_l in layers:
+                x, a, nc = B.apply_dense(x, p_l, ctx, lt, mode, c_l)
+                aux_total = aux_total + a
+                caches.append(nc)
+            new_segs.append(_seg_cache(seg, caches) if mode == "prefill" else c_seg)
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return x, aux_total, {"segments": [_stack(caches) if mode == "prefill" else c_seg]}
+        return x, aux_total, (None if mode == "train" else {"segments": new_segs})
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
-        """batch {"tokens": [B, S] int, "loss_mask": [B, S] (optional)} ->
-        (loss, {"ce", "aux"}): next-token CE with the last position masked,
-        through ``_chunked_ce``."""
+        """batch {"tokens": [B, S] int, "loss_mask": [B, S] (optional), and
+        for a VLM "patch_embeds", "positions_thw"} -> (loss, {"ce", "aux"}):
+        next-token CE with the last position masked, through ``_chunked_ce``."""
         tokens = batch["tokens"]
         bsz, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(bsz, S)
-        ctx = self._make_ctx(positions)
-        x, aux, _ = self._run_stack(params, self._embed(params, tokens), ctx, "train")
+        ctx = self._make_ctx(positions, positions_thw=batch.get("positions_thw"))
+        x, aux, _ = self._run_stack(params, self._embed(params, tokens, batch), ctx, "train")
         labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
         mask = batch.get("loss_mask")
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
                 if mask is None else mask.to(torch.float32).clone())
         mask[:, -1] = 0.0
-        ce = _chunked_ce(x, params["unembed"], False, labels, mask)
+        ce = _chunked_ce(x, *self._unembed_w(params), labels, mask)
         loss = ce + aux
         return loss, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------ prefill / decode
     def prefill(self, params, batch, max_cache_len: int):
-        """batch {"tokens": [B, S] int} -> (cache, last_logits [B, V] f32, lengths [B])."""
+        """batch {"tokens": [B, S] int, and for a VLM "patch_embeds",
+        "positions_thw"} -> (cache, last_logits [B, V] f32, lengths [B])."""
         tokens = batch["tokens"]
         bsz, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(bsz, S)
-        ctx = self._make_ctx(positions, max_cache_len=max_cache_len)
-        x, _, cache = self._run_stack(params, self._embed(params, tokens), ctx, "prefill")
-        last_logits = L.unembed(x[:, -1], params["unembed"], False)
+        ctx = self._make_ctx(positions, max_cache_len=max_cache_len,
+                             positions_thw=batch.get("positions_thw"))
+        x, _, cache = self._run_stack(params, self._embed(params, tokens, batch), ctx,
+                                      "prefill")
+        last_logits = L.unembed(x[:, -1], *self._unembed_w(params))
         lengths = torch.full((bsz,), S, dtype=torch.int32, device=tokens.device)
         cache["lengths"] = lengths
         return cache, last_logits, lengths
 
     def init_cache(self, bsz: int, max_cache_len: int) -> dict:
-        ctx = B.Ctx(cfg=self.cfg, window=self.cfg.window_size, max_cache_len=max_cache_len)
-        seg = self.segments[0]
-        c = B.init_block_cache(self.cfg, bsz, seg.layer_types[0], ctx, self.dtype, self.device)
-        return {"segments": [{k: torch.stack([a] * seg.n) for k, a in c.items()}],
+        cfg = self.cfg
+        ctx = B.Ctx(cfg=cfg, window=cfg.window_size, max_cache_len=max_cache_len)
+
+        def layer(lt):
+            return B.init_block_cache(cfg, bsz, lt, ctx, self.dtype, self.device)
+
+        segs = []
+        for seg in self.segments:
+            if seg.kind == "unroll":
+                segs.append([layer(lt) for lt in seg.layer_types])
+            else:  # one unit's layer types, n times: a dense layer or a period
+                unit = seg.layer_types if seg.unit == "gemma_period" else seg.layer_types[:1]
+                segs.append(_seg_cache(seg, [layer(lt) for lt in unit * seg.n]))
+        return {"segments": segs,
                 "lengths": torch.zeros((bsz,), dtype=torch.int32, device=self.device)}
 
     def decode_step(self, params, cache, tokens, batch=None):
         """tokens [B, 1]; cache from prefill / init_cache, updated in place.
-        Returns (logits [B, V] f32, cache with lengths + 1)."""
+        Returns (logits [B, V] f32, cache with lengths + 1).  A VLM's
+        positions are the sequence index in all three M-RoPE streams, as in
+        the reference (not Qwen2-VL's offset after an image)."""
         lengths = cache["lengths"]
-        ctx = self._make_ctx(lengths[:, None], lengths=lengths)
-        x, _, new_cache = self._run_stack(params, self._embed(params, tokens), ctx, "decode",
-                                          cache)
-        logits = L.unembed(x[:, 0], params["unembed"], False)
+        positions = lengths[:, None]
+        positions_thw = None
+        if self.cfg.vlm is not None:
+            positions_thw = positions[None].expand(3, tokens.shape[0], 1)
+        ctx = self._make_ctx(positions, lengths=lengths, positions_thw=positions_thw)
+        x, _, new_cache = self._run_stack(params, self._embed_tokens(params, tokens), ctx,
+                                          "decode", cache)
+        logits = L.unembed(x[:, 0], *self._unembed_w(params))
         new_cache["lengths"] = lengths + 1
         return logits, new_cache
 

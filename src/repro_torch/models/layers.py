@@ -1,6 +1,6 @@
-"""Shared neural-net layers of the dense decoder: norms, rotary embeddings,
-gated MLPs and attention, as plain functions over tensors and parameter
-dicts (the JAX package's ``repro.models.layers``, in PyTorch).
+"""Shared neural-net layers of the decoder: norms, rotary embeddings (M-RoPE
+included), gated MLPs and attention, as plain functions over tensors and
+parameter dicts (the JAX package's ``repro.models.layers``, in PyTorch).
 
 Attention comes in three forms:
 
@@ -63,6 +63,26 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     c = cos[..., None, :]
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
+
+
+def mrope_cos_sin(positions_thw: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE (Qwen2-VL): positions_thw [3, B, S] -> cos, sin [B, S, hd // 2].
+
+    The hd // 2 frequency slots are split into (t, h, w) sections; each
+    section rotates by its own position stream.  Text tokens set t = h = w."""
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions_thw.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang_all = positions_thw.float()[..., None] * freqs  # [3, B, S, half]
+    pieces = []
+    start = 0
+    for i, sec in enumerate(sections):
+        pieces.append(ang_all[i, ..., start:start + sec])
+        start += sec
+    ang = torch.cat(pieces, dim=-1)  # [B, S, half]
+    return torch.cos(ang), torch.sin(ang)
 
 
 # --------------------------------------------------------------------------- mlp
@@ -228,14 +248,17 @@ def attention_trainable(q, k, v, *, causal: bool = True, window: int = 0, n_meta
 
 
 # --------------------------------------------------------------------------- qkv projection helpers
-def project_qkv(x: torch.Tensor, p: dict, cfg):
-    """x [B, S, D] -> q [B, S, H, hd], k, v [B, S, KV, hd].  (The reference's
-    optional qk-norm belongs to gemma3, which is not ported yet.)"""
+def project_qkv(x: torch.Tensor, p: dict, cfg, *, qk_norm_p: Optional[dict] = None):
+    """x [B, S, D] -> q [B, S, H, hd], k, v [B, S, KV, hd] (+ optional
+    per-head RMS qk-norm)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (x @ p["wk"]).reshape(B, S, KV, hd)
     v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    if qk_norm_p is not None:
+        q = rms_norm(q, qk_norm_p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, qk_norm_p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 

@@ -42,7 +42,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import tree as ttree
 from repro_torch.analysis import lockcheck as _lockcheck
 from repro_torch.core import Device, OpType, QueueFull, WorkDescriptor, WQConfig
 from repro_torch.serving.slo import DEFAULT_SLO_CLASSES, classes_by_name
@@ -541,22 +540,26 @@ class VhostStyleServer:
 
 
 def _splice_cache(batch_cache, one_cache, slot: int):
-    """Write a batch-1 cache into row `slot` of the batch cache, in place.
+    """Write a batch-1 cache into row ``slot`` of the batch cache, in place.
 
-    lengths is [B]; other leaves have batch as the SECOND dim under layer
-    stacking for scanned segments ([L, B, ...]) or the first dim for
-    unrolled per-layer caches."""
+    The batch axis of each leaf follows from where it sits in the cache:
+    an unrolled segment is a list of per-layer caches ([B, ...]), a scanned
+    segment stacks its units ([n, B, ...]), and a gemma3 period's
+    ``locals`` stack once more inside the unit ([n, 5, B, ...]).  (The JAX
+    package guesses the axis from the shapes and writes a period's locals
+    along the layer axis.)"""
 
-    def splice(dst, src):
-        if dst.ndim >= 2 and src.ndim == dst.ndim and src.shape[0] == dst.shape[0]:
-            # stacked [L, B, ...]
-            dst[:, slot] = src[:, 0]
-        elif src.ndim == dst.ndim:
-            dst[slot] = src[0]
-        return dst
+    def splice(dst, src, axis: int):
+        if isinstance(dst, dict):
+            for k in dst:
+                splice(dst[k], src[k], axis + (k == "locals"))
+        elif isinstance(dst, list):
+            for d, s in zip(dst, src):
+                splice(d, s, axis)
+        else:
+            dst.select(axis, slot).copy_(src.select(axis, 0))
 
-    new_segs = [ttree.tree_map(splice, d, s)
-                for d, s in zip(batch_cache["segments"], one_cache["segments"])]
-    lengths = batch_cache["lengths"]
-    lengths[slot] = one_cache["lengths"][0]
-    return {"segments": new_segs, "lengths": lengths}
+    for d, s in zip(batch_cache["segments"], one_cache["segments"]):
+        splice(d, s, 0 if isinstance(d, list) else 1)
+    batch_cache["lengths"][slot] = one_cache["lengths"][0]
+    return batch_cache
