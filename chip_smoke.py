@@ -66,8 +66,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      edges), B = 2 with ragged lengths, B = 8 at tinyllama's 2048 tokens
      (phase 4e(i)'s training shape), windowed Sq > Skv cases with rows
      that see no key or only the meta keys, gemma3-1b's local layers (hd
-     256, window 1024) and qwen2-vl-2b's (hd 128) at 2048 tokens, bf16 and
-     f32;
+     256, window 1024), qwen2-vl-2b's (hd 128) and deepseek-moe-16b's (MHA,
+     16 heads of 128) at 2048 tokens, bf16 and f32;
   3d. the slice-4 main path at a small size: tinyllama-1.1b.reduced() in f32
      served (6 requests of 16-77 tokens, 4 new tokens each) by the
      ``VhostStyleServer`` with ``attn_impl="flash"`` on the card, and with the
@@ -95,8 +95,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      every traced submit, the edges, the tracer's host-free fraction equal
      to WaitStats', a valid Perfetto export, the Sampler's totals equal to
      the telemetry snapshot's; a forced QueueFull closes its trace; the 4
-     KiB round trip traced and untraced; phase 3d's reduced model served on
-     a traced device, every descriptor under its request's ``req<id>``;
+     KiB round trip traced and untraced, 1000 trips a policy: spin's
+     host-free share 0 and its median untraced trip below umwait's; phase
+     3d's reduced model served on a traced device, every descriptor under
+     its request's ``req<id>``;
   4e. training: (i) tinyllama-1.1b at full width and depth (bf16, flash,
      per-layer remat), 6 ``make_train_step`` steps of 8 x 2048 tokens from
      ``SyntheticLMDataset`` through the ``Prefetcher``: finite, falling
@@ -127,11 +129,29 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      16 greedy decode steps, 28 flash launches in the prefill, flash against
      chunked prefill logits as in 4d; the same batch at reduced() size in
      f32 on the card and on the CPU within 1e-4;
+  3h. deepseek-moe-16b, llama4-maverick and mamba2-370m at reduced() size in
+     f32, each served on the card and on the CPU as in 3f, admission pinned
+     (each prompt copy waited for at its submit, so both servers admit at
+     the same steps: an MoE's tokens depend on their decode neighbours):
+     the same tokens, every splice checked, the router's indices and keep
+     masks equal at every MoE layer of the first prefill, the smallest
+     top-k margin;
+  4h. deepseek-moe-16b at full width and depth (28 layers: a dense layer
+     with d_ff 10944, then 27 MoE layers of 64 experts top-6 and 2 shared
+     experts; MHA, 16 heads of 128; bf16, 16.37 G parameters, 32.7 GB)
+     served as in 4d: 28 x 8 flash launches, the drops by MoE layer in the
+     2048-token prefill, flash against chunked prefill logits as in 4d with
+     the weights made f32 in place (65.5 GB);
+  4i. mamba2-370m at full width and depth (48 layers, d_model 1024, 32 SSD
+     heads of 64, d_state 128; bf16) served as in 4d (no attention: no flash
+     launch); a prefill of 2047 tokens and one decode step against a
+     prefill of 2048: f32 within 1e-3, bf16 within twice the measured
+     noise;
   5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
      ``scaled_dot_product_attention``, also at hd 128 and 256, and at the
-     gemma3-1b and qwen2-vl-2b prefill shapes with their bounds over the
+     gemma3-1b, qwen2-vl-2b and deepseek-moe-16b prefill shapes with their bounds over the
      visible (q, k) pairs and SDPA (with an explicit boolean mask for the
      window); fill against
      ``Tensor.fill_`` interleaved call by call); the device work of one
@@ -140,7 +160,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
   6. the launch counts of each slice's main path, set to 0 just before it
      and read just after: every kernel of the path must have launched
      (flash_attention and memcpy_words in 3f and 4f, flash_attention in
-     4g); and
+     4g; memcpy_words, and flash_attention except for mamba2, in 3h, 4h and
+     4i); and
      of one ``ops.crc32`` at 4 KiB .. 1 GiB: one CRC launch, plus the
      sub-chunk fold only where a chunk is longer than one sub-chunk.
 
@@ -1370,6 +1391,10 @@ FLASH_CASES = (
     # another tile)
     (1, 2048, 2048, 4, 1, 256, True, 0, 0, torch.bfloat16),
     (1, 1536, 1536, 4, 1, 256, True, 1024, 0, torch.bfloat16),
+    # slice 10: deepseek-moe-16b's prefill (MHA, 16 heads of 128) at 2048
+    # tokens and at the 333-token prompt (a partial last tile)
+    (1, 2048, 2048, 16, 16, 128, True, 0, 0, torch.bfloat16),
+    (1, 333, 333, 16, 16, 128, True, 0, 0, torch.bfloat16),
 )
 
 
@@ -1409,15 +1434,35 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def pin_admission(device):
+    """Wait for each prompt copy burst as it is submitted, so the server
+    admits each request in the step after its copies went out, on the card
+    as on the CPU.  An MoE's capacity at decode makes a request's tokens
+    depend on which requests share its decode steps (ROADMAP.md, held for
+    parity), so two servers serve the same tokens only if they admit at the
+    same steps."""
+    submit = device.batch_async
+
+    def batch_async(*a, **kw):
+        fut = submit(*a, **kw)
+        fut.wait()
+        return fut
+
+    device.batch_async = batch_async
+    return device
+
+
 def serve(model, params, device, prompts, *, slots, max_cache, max_new, max_steps=2000,
-          wrap_decode=None, kv_pool=None):
+          wrap_decode=None, kv_pool=None, pin=False):
     """Serve ``prompts`` through a VhostStyleServer; every request must
     complete with ``max_new`` tokens.  ``wrap_decode`` wraps the server's
-    decode step.  Returns (requests, server, seconds)."""
+    decode step; ``pin`` pins admission (``pin_admission``).  Returns
+    (requests, server, seconds)."""
     from repro_torch.serving.pipeline import Request, VhostStyleServer
 
     server = VhostStyleServer(model, params, slots=slots, max_cache_len=max_cache,
-                              device=device, kv_pool=kv_pool)
+                              device=pin_admission(device) if pin else device,
+                              kv_pool=kv_pool)
     if wrap_decode is not None:
         server._decode = wrap_decode(server._decode)
     t0 = time.perf_counter()
@@ -1436,13 +1481,16 @@ def serve(model, params, device, prompts, *, slots, max_cache, max_new, max_step
 
 
 def serve_card_and_cpu(dev, cfg, prompt_lens, *, max_new: int, prompt_seed: int,
-                       device, kv_pool=None, splices=None) -> dict:
+                       device, kv_pool=None, splices=None, pin=False, routing=None) -> dict:
     """Serve prompts of ``prompt_lens`` tokens (3 slots, a cache of 96)
     with ``cfg``'s model (flash) on the card through ``device`` and, with
     the same weights, on the CPU: the same tokens, and the 77-token
     prefill's logits within SERVE_F32_TOL.  The launch counts are set to 0
     just before the card serves and read just after; with ``splices`` (a
-    list) every splice is checked (``checked_splices``)."""
+    list) every splice is checked (``checked_splices``); ``pin`` pins both
+    servers' admission (``pin_admission``); with ``routing`` (a dict) every
+    router call of the card's and the CPU's serving is recorded in its
+    "card" and "cpu" lists (``recorded_routing``)."""
     from repro_torch import tree as ttree
     from repro_torch.core import make_device
     from repro_torch.models.api import build_model
@@ -1454,18 +1502,26 @@ def serve_card_and_cpu(dev, cfg, prompt_lens, *, max_new: int, prompt_seed: int,
     rng = np.random.default_rng(prompt_seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in prompt_lens]
     kw = dict(slots=3, max_cache=96, max_new=max_new, max_steps=500)
-    def checking():
-        return checked_splices(splices) if splices is not None else contextlib.nullcontext()
+    @contextlib.contextmanager
+    def checking(where):
+        with contextlib.ExitStack() as stack:
+            if splices is not None:
+                stack.enter_context(checked_splices(splices))
+            if routing is not None:
+                stack.enter_context(recorded_routing(routing.setdefault(where, [])))
+            yield
 
     reset_counts()
-    with checking():
-        on_card, server, secs = serve(card, params, device, prompts, kv_pool=kv_pool, **kw)
+    with checking("card"):
+        on_card, server, secs = serve(card, params, device, prompts, kv_pool=kv_pool, pin=pin,
+                                      **kw)
     sync(dev)
     counts = read_counts(SLICE4)
-    with checking():
+    with checking("cpu"):
         on_cpu, _, cpu_secs = serve(
             host_model, host_params,
-            make_device(n_instances=2, policy="least_loaded", device="cpu"), prompts, **kw)
+            make_device(n_instances=2, policy="least_loaded", device="cpu"), prompts, pin=pin,
+            **kw)
     check([r.output for r in on_card] == [r.output for r in on_cpu],
           f"the card served other tokens than the CPU: {[r.output for r in on_card]} vs "
           f"{[r.output for r in on_cpu]}")
@@ -1590,10 +1646,13 @@ def checked_splices(out: list):
 def serve_full(dev, cfg) -> dict:
     """Serve FULL_PROMPTS through 4 slots at ``cfg``'s width and depth
     (bf16, flash): every request completes, every admission's splice is
-    checked (``checked_splices``), flash launches once a layer a prefill
-    and the prompt copies go through memcpy_words and batch_copy_pages;
-    time to first token, decode tokens/s, peak memory; then the 2048-token
-    prefill's logits under "flash" against "chunked"."""
+    checked (``checked_splices``), flash launches once an attention layer
+    a prefill (never for an SSM) and the prompt copies go through
+    memcpy_words and batch_copy_pages; time to first token, decode
+    tokens/s, peak memory; then, on the 2048-token prompt, an SSM's
+    ``ssm_decode_chain`` or any other model's ``flash_vs_chunked`` (its
+    prefill's logits under "flash" against "chunked"), which may change
+    the parameters: nothing reads them after it."""
     from repro_torch import tree as ttree
     from repro_torch.core import make_device
     from repro_torch.models.api import build_model
@@ -1655,9 +1714,10 @@ def serve_full(dev, cfg) -> dict:
     print(f"launches while serving: {counts}; {len(splices)} splices checked, "
           f"{splices[0][0]} cache leaves each; peak memory {peak} B")
     check(len(splices) == len(prompts), f"{len(splices)} splices for {len(prompts)} requests")
-    check(counts["flash_attention"] == cfg.num_layers * len(prompts),
+    attn_layers = 0 if cfg.family == "ssm" else cfg.num_layers
+    check(counts["flash_attention"] == attn_layers * len(prompts),
           f"flash_attention launched {counts['flash_attention']} times, not "
-          f"{cfg.num_layers} layers x {len(prompts)} prefills")
+          f"{attn_layers} attention layers x {len(prompts)} prefills")
     check(counts["memcpy_words"] > 0 and counts["batch_copy_pages"] > 0,
           f"the prompt copies did not go through memcpy_words and batch_copy_pages: {counts}")
     m = server.metrics
@@ -1689,28 +1749,47 @@ def serve_full(dev, cfg) -> dict:
         f"check {d['splice_check_s']:.4f} + the rest "
         f"{d['ttft_s'] - d['prefill_s'] - d['splice_check_s']:.4f}" for d in split))
     del server
-    out.update(flash_vs_chunked(model, params, {"tokens": torch.from_numpy(prompts[0])[None]},
-                                dev))
+    compare = ssm_decode_chain if cfg.family == "ssm" else flash_vs_chunked
+    out.update(compare(model, params, {"tokens": torch.from_numpy(prompts[0])[None]}, dev))
     return out
 
 
 def flash_vs_chunked(model, params, batch, dev) -> dict:
     """One batch's prefill logits under "flash" and "chunked" (plain
     PyTorch), with the model's bf16 weights and with the same weights in
-    f32.  ``batch`` holds [B, S] tokens (and a VLM's fields)."""
-    from repro_torch import tree as ttree
+    f32.  ``batch`` holds [B, S] tokens (and a VLM's fields).  The bf16
+    runs go first; ``params`` is then turned into f32 in place
+    (``f32_in_place``; nothing reads it after), so no second copy of the
+    model is held (deepseek-moe-16b is 32.8 GB in bf16, 65.5 GB in f32).
+    For an MoE model each run's router calls are recorded
+    (``recorded_routing``), and the f32 check holds flash against a
+    chunked run that takes the flash run's expert choices
+    (``replayed_routing``): a choice whose top-k margin is below the two
+    attention paths' f32 difference flips otherwise, and with it which
+    assignments a full expert drops, which moves the logits of the last
+    tokens (the last in the dispatch order) by far more than the attention
+    paths differ.  The difference with each run's own choices, the flips
+    by layer and the bf16 flash run's drops by layer are reported beside
+    it."""
     from repro_torch.models.api import build_model
 
     cfg32 = dataclasses.replace(model.cfg, dtype="float32")
-    p32 = ttree.tree_map(lambda t: t.float(), params)
     batch = {k: v.to(dev) for k, v in batch.items()}
     bsz, prompt_len = batch["tokens"].shape
+    routing = {} if model.cfg.moe is not None else None
     logits = {}
-    for kind, cfg, p in (("bf16", model.cfg, params), ("f32", cfg32, p32)):
+    for kind in ("bf16", "f32"):
+        cfg, p = (model.cfg, params) if kind == "bf16" else (cfg32, f32_in_place(params))
         for impl in ("flash", "chunked"):
             m = build_model(cfg, remat=False, attn_impl=impl, device=dev)
-            _, logits[kind, impl], _ = m.prefill(p, batch, prompt_len)
-    del p32
+            calls = routing.setdefault((kind, impl), []) if routing is not None else None
+            with recorded_routing(calls) if calls is not None else contextlib.nullcontext():
+                _, logits[kind, impl], _ = m.prefill(p, batch, prompt_len)
+        if kind == "f32" and routing is not None:
+            m = build_model(cfg, remat=False, attn_impl="chunked", device=dev)
+            with replayed_routing(routing["f32", "flash"]):
+                _, logits["f32", "chunked, flash's routing"], _ = m.prefill(p, batch, prompt_len)
+        del p
     for key, lg in logits.items():
         check(bool(torch.isfinite(lg).all()) and lg.shape == (bsz, model.cfg.vocab_size),
               f"{key} prefill logits: not finite, or shape {tuple(lg.shape)}")
@@ -1718,19 +1797,25 @@ def flash_vs_chunked(model, params, batch, dev) -> dict:
     def gap(a, b):
         return float((logits[a] - logits[b]).abs().max())
 
-    out = {"f32_flash_vs_chunked": gap(("f32", "flash"), ("f32", "chunked")),
+    f32_ref = ("f32", "chunked") if routing is None else ("f32", "chunked, flash's routing")
+    out = {"f32_flash_vs_chunked": gap(("f32", "flash"), f32_ref),
            "bf16_flash_vs_chunked": gap(("bf16", "flash"), ("bf16", "chunked")),
            "bf16_noise": gap(("bf16", "chunked"), ("f32", "chunked")),
            "bf16_flash_vs_f32": gap(("bf16", "flash"), ("f32", "chunked")),
            "logits_absmax": float(logits["f32", "chunked"].abs().max()),
            "same_argmax": len({tuple(lg.argmax(-1).tolist()) for lg in logits.values()}) == 1}
+    if routing is not None:
+        out.update(moe_routing(model.cfg, routing))
+        out["f32_flash_vs_chunked_own_routing"] = gap(("f32", "flash"), ("f32", "chunked"))
+        print(f"f32, each run's own routing: flash vs chunked "
+              f"{out['f32_flash_vs_chunked_own_routing']:.3e}")
     print(f"{bsz} x {prompt_len}-token prefill logits (|logits| up to "
           f"{out['logits_absmax']:.3f}): "
           f"f32 flash vs chunked {out['f32_flash_vs_chunked']:.3e}; bf16 flash vs chunked "
           f"{out['bf16_flash_vs_chunked']:.3e}, bf16 noise (chunked bf16 vs f32) "
           f"{out['bf16_noise']:.3e}, flash bf16 vs f32 {out['bf16_flash_vs_f32']:.3e}; "
           f"one argmax: {out['same_argmax']}")
-    check(torch.allclose(logits["f32", "flash"], logits["f32", "chunked"], **SERVE_F32_TOL),
+    check(torch.allclose(logits["f32", "flash"], logits[f32_ref], **SERVE_F32_TOL),
           f"f32 prefill logits: flash and chunked differ by {out['f32_flash_vs_chunked']}")
     check(out["bf16_flash_vs_chunked"] <= BF16_NOISE_FACTOR * out["bf16_noise"],
           f"bf16 prefill logits: flash and chunked differ by {out['bf16_flash_vs_chunked']}, "
@@ -1739,6 +1824,117 @@ def flash_vs_chunked(model, params, batch, dev) -> dict:
           f"bf16 flash is {out['bf16_flash_vs_f32']} from the f32 model, more than "
           f"{BF16_FROM_F32_FACTOR} x chunked's {out['bf16_noise']}")
     return out
+
+
+def moe_routing(cfg, routing: dict) -> dict:
+    """What ``flash_vs_chunked``'s recorded router calls show: the bf16
+    flash prefill's dropped assignments by MoE layer, the smallest top-k
+    margin of all runs, and, by layer, the tokens whose choices differ
+    between the f32 flash and chunked runs and the assignments kept in one
+    and dropped in the other."""
+    n_moe = len(cfg.moe_layer_indices())
+    check(all(len(v) == n_moe for v in routing.values()),
+          f"router calls a prefill: {[len(v) for v in routing.values()]}, not {n_moe}")
+    served = routing["bf16", "flash"]
+    f32 = list(zip(routing["f32", "flash"], routing["f32", "chunked"]))
+    out = {"prefill_drops_by_layer": [int((~c["keep"]).sum()) for c in served],
+           "assignments_a_layer": served[0]["keep"].numel(),
+           "min_topk_margin": min(c["margin"] for v in routing.values() for c in v),
+           "f32_router_flips_by_layer": [int((a["idx"] != b["idx"]).any(-1).sum())
+                                         for a, b in f32],
+           "f32_keep_changes_by_layer": [int((a["keep"] != b["keep"]).sum()) for a, b in f32]}
+    print(f"prefill: dropped assignments by MoE layer (of {out['assignments_a_layer']} each) "
+          f"{out['prefill_drops_by_layer']}; smallest top-{cfg.moe.top_k} margin "
+          f"{out['min_topk_margin']:.3e}; f32 flash vs chunked, tokens whose expert choice "
+          f"differs by layer {out['f32_router_flips_by_layer']}, assignments kept in one run "
+          f"and dropped in the other {out['f32_keep_changes_by_layer']}")
+    return out
+
+
+def f32_in_place(tree):
+    """Every leaf of the tree of dicts and lists ``tree`` replaced by its
+    f32 copy, the largest first, each old leaf freed before the next copy
+    is made; a leaf whose f32 copy does not fit beside it on the card goes
+    through the host.  Returns ``tree``."""
+    slots = []
+
+    def walk(node):
+        for k, v in (node.items() if isinstance(node, dict) else enumerate(node)):
+            if isinstance(v, (dict, list)):
+                walk(v)
+            else:
+                slots.append((node, k))
+
+    walk(tree)
+    for node, k in sorted(slots, key=lambda s: -s[0][s[1]].numel()):
+        t, dev = node[k], node[k].device
+        if t.is_cuda and t.dtype != torch.float32:
+            torch.cuda.empty_cache()
+            if torch.cuda.mem_get_info(dev)[0] < 4 * t.numel() + GiB:
+                # no room for both copies on the card: through the host
+                print(f"a {tuple(t.shape)} leaf made f32 through the host")
+                host = t.cpu()
+                node[k] = t = None
+                torch.cuda.empty_cache()
+                node[k] = host.float().to(dev)
+                continue
+        node[k] = t.float()
+    torch.cuda.empty_cache()
+    return tree
+
+
+@contextlib.contextmanager
+def recorded_routing(calls: list):
+    """Within the block, each call of the MoE router appends to ``calls``
+    (on the host): the expert indices [T, k], the keep mask [T * k] of the
+    capacity dispatch, and the smallest gap between a token's k-th and
+    (k+1)-th router probability (the margin a rounding would have to cross
+    to change the choice)."""
+    from repro_torch.models import moe
+
+    base = moe.router_topk
+
+    def router_topk(x, w_router, cfg):
+        weights, idx, aux = base(x, w_router, cfg)
+        probs = torch.softmax(x.float() @ w_router.float(), dim=-1)
+        top = probs.sort(dim=-1, descending=True).values
+        k = cfg.top_k
+        margin = (float((top[:, k - 1] - top[:, k]).min()) if k < probs.shape[-1]
+                  else math.inf)
+        keep = moe.dispatch_plan(idx, cfg, x.shape[0])[2]
+        calls.append({"idx": idx.cpu(), "keep": keep.cpu(), "margin": margin})
+        return weights, idx, aux
+
+    moe.router_topk = router_topk
+    try:
+        yield
+    finally:
+        moe.router_topk = base
+
+
+@contextlib.contextmanager
+def replayed_routing(calls: list):
+    """Within the block, the i-th call of the MoE router chooses the
+    experts ``calls[i]["idx"]`` (recorded by ``recorded_routing``), weighted
+    by its own probabilities of them as the router weighs its choices."""
+    from repro_torch.models import moe
+
+    base = moe.router_topk
+    replay = iter(calls)
+
+    def router_topk(x, w_router, cfg):
+        _, _, aux = base(x, w_router, cfg)
+        idx = next(replay)["idx"].to(x.device)
+        weights = torch.softmax(x.float() @ w_router.float(), dim=-1).gather(1, idx)
+        if cfg.top_k > 1:
+            weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
+        return weights, idx, aux
+
+    moe.router_topk = router_topk
+    try:
+        yield
+    finally:
+        moe.router_topk = base
 
 
 # --------------------------------------------------------------------------- phases 3f and 4g
@@ -1874,6 +2070,150 @@ def vlm_full(dev) -> dict:
           f"logits max |card - CPU| {err:.3e}")
     out["reduced_card_vs_cpu"] = err
     return out
+
+
+# --------------------------------------------------------------------------- phases 3h, 4h and 4i
+#: slice 10: the MoE family (deepseek-moe-16b: a leading dense layer, then
+#: MoE layers of 64 experts top-6 with 2 shared experts; llama4-maverick:
+#: dense / MoE periods, 128 experts top-1) and the Mamba-2 SSM family
+DEEPSEEK_MOE, LLAMA4, MAMBA2 = "deepseek-moe-16b", "llama4-maverick-400b-a17b", "mamba2-370m"
+#: phase 3h's prompts (the 77-token one's prefill logits are compared)
+SLICE10_SMALL_PROMPTS = (16, 77, 33, 50, 64, 21)
+SLICE10_SMALL_NEW = 6
+#: phase 4i: the last logits of a prefill of SSM_CHAIN_S + 1 tokens against
+#: a prefill of SSM_CHAIN_S tokens and one decode step (2047 is odd, so its
+#: prefill runs the SSD with chunks of one token; 2048 with chunks of 256)
+SSM_CHAIN_S = 2047
+SSM_CHAIN_F32_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+@phase("3h serving the MoE and SSM families on the card and on the CPU (reduced(), f32)")
+def serving_moe_ssm_small(dev) -> dict:
+    """deepseek-moe-16b, llama4-maverick and mamba2-370m at ``reduced()``
+    size in f32, each served as phase 3d serves tinyllama, with every splice
+    checked and admission pinned (``pin_admission``): the same tokens on
+    the card and the CPU, the 77-token prefill's logits within
+    SERVE_F32_TOL; for the MoE models the router's expert indices and keep
+    masks equal on the card and the CPU at every MoE layer of the first
+    prefill, and the smallest top-k margin of the run.  Returns each
+    model's results with the card's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_device
+
+    out = {}
+    for arch in (DEEPSEEK_MOE, LLAMA4, MAMBA2):
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        splices: list = []
+        routing: dict = {}
+        print(f"{arch} reduced: {cfg.num_layers} layers, d_model {cfg.d_model}")
+        res = serve_card_and_cpu(dev, cfg, SLICE10_SMALL_PROMPTS, max_new=SLICE10_SMALL_NEW,
+                                 prompt_seed=8, splices=splices, pin=True, routing=routing,
+                                 device=make_device(n_instances=2, policy="least_loaded",
+                                                    device=dev))
+        check(len(splices) == 2 * len(SLICE10_SMALL_PROMPTS), f"{len(splices)} splices checked")
+        res["splices_checked"] = len(splices)
+        if cfg.moe is not None:
+            n_moe = len(cfg.moe_layer_indices())
+            card, cpu = routing["card"], routing["cpu"]
+            check(len(card) == len(cpu) and len(card) >= n_moe,
+                  f"{len(card)} router calls on the card, {len(cpu)} on the CPU")
+            for i, (a, b) in enumerate(zip(card[:n_moe], cpu[:n_moe])):
+                check(torch.equal(a["idx"], b["idx"]) and torch.equal(a["keep"], b["keep"]),
+                      f"{arch}: MoE layer {i} of the first prefill routes otherwise on the "
+                      f"card than on the CPU")
+            differ = sum(not (torch.equal(a["idx"], b["idx"]) and torch.equal(a["keep"], b["keep"]))
+                         for a, b in zip(card, cpu))
+            res.update(router_calls=len(card), router_calls_differing=differ,
+                       min_topk_margin=min(c["margin"] for c in card + cpu),
+                       first_prefill_drops=[int((~c["keep"]).sum()) for c in card[:n_moe]])
+            print(f"{arch}: {len(card)} router calls; the first prefill's {n_moe} MoE layers "
+                  f"route alike on the card and the CPU (drops by layer "
+                  f"{res['first_prefill_drops']}); calls that differ in the whole run: "
+                  f"{differ}; smallest top-{cfg.moe.top_k} margin {res['min_topk_margin']:.3e}")
+        out[arch] = res
+    return out
+
+
+@phase("4h serving deepseek-moe-16b at full width and depth (bf16, flash)")
+def serving_moe_full(dev) -> dict:
+    """deepseek-moe-16b (28 layers: a dense layer with d_ff 10944, then 27
+    MoE layers of 64 experts top-6 with 2 shared experts, d_ff_expert 1408;
+    MHA, 16 heads of 128; bf16, 16.38 G parameters) served as phase 4d
+    serves tinyllama; ``flash_vs_chunked`` then reports its routing."""
+    from repro_torch.configs import get_config
+
+    sync(dev)
+    torch.cuda.empty_cache()
+    print(f"held on the card before the phase: {torch.cuda.memory_allocated(dev)} B")
+    return serve_full(dev, get_config(DEEPSEEK_MOE))
+
+
+def ssm_decode_chain(model, params, batch, dev) -> dict:
+    """The last logits of a prefill of SSM_CHAIN_S + 1 tokens against a
+    prefill of SSM_CHAIN_S tokens followed by one decode step (the card's
+    counterpart of test_ssd.py's prefill-state-against-decode check): with
+    the weights in f32 within SSM_CHAIN_F32_TOL, in bf16 within twice the
+    bf16 rounding noise measured in the run (the bf16 prefill against the
+    f32 one).  ``batch``'s tokens are extended to SSM_CHAIN_S + 1 from a
+    seed."""
+    from repro_torch import tree as ttree
+    from repro_torch.models.api import build_model
+
+    rng = np.random.default_rng(12)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                         (1, SSM_CHAIN_S + 1)).astype(np.int32)).to(dev)
+    logits = {}
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    for kind, cfg, p in (("bf16", model.cfg, params),
+                         ("f32", cfg32, ttree.tree_map(lambda t: t.float(), params))):
+        m = build_model(cfg, remat=False, attn_impl="flash", device=dev)
+        t0 = time.perf_counter()
+        _, logits[kind, "prefill"], _ = m.prefill(p, {"tokens": toks}, SSM_CHAIN_S + 1)
+        sync(dev)
+        t1 = time.perf_counter()
+        cache, _, _ = m.prefill(p, {"tokens": toks[:, :SSM_CHAIN_S]}, SSM_CHAIN_S + 1)
+        sync(dev)
+        t2 = time.perf_counter()
+        logits[kind, "chain"], _ = m.decode_step(p, cache, toks[:, SSM_CHAIN_S:])
+        logits[kind, "seconds"] = (t1 - t0, t2 - t1)
+    for key in (("bf16", "prefill"), ("bf16", "chain"), ("f32", "prefill"), ("f32", "chain")):
+        lg = logits[key]
+        check(bool(torch.isfinite(lg).all()) and lg.shape == (1, model.cfg.vocab_size),
+              f"{key} logits: not finite, or shape {tuple(lg.shape)}")
+
+    def gap(a, b):
+        return float((logits[a] - logits[b]).abs().max())
+
+    out = {"f32_chain_vs_prefill": gap(("f32", "chain"), ("f32", "prefill")),
+           "bf16_chain_vs_prefill": gap(("bf16", "chain"), ("bf16", "prefill")),
+           "bf16_noise": gap(("bf16", "prefill"), ("f32", "prefill")),
+           "logits_absmax": float(logits["f32", "prefill"].abs().max()),
+           "prefill_s": {f"{kind} {n} tokens": logits[kind, "seconds"][i]
+                         for kind in ("bf16", "f32")
+                         for i, n in enumerate((SSM_CHAIN_S + 1, SSM_CHAIN_S))}}
+    print(f"prefill of {SSM_CHAIN_S} tokens and one decode step against a prefill of "
+          f"{SSM_CHAIN_S + 1} (|logits| up to {out['logits_absmax']:.3f}): f32 "
+          f"{out['f32_chain_vs_prefill']:.3e}; bf16 {out['bf16_chain_vs_prefill']:.3e} against a "
+          f"bf16 noise of {out['bf16_noise']:.3e}; prefill seconds {out['prefill_s']}")
+    check(torch.allclose(logits["f32", "chain"], logits["f32", "prefill"], **SSM_CHAIN_F32_TOL),
+          f"f32: the decode chain is {out['f32_chain_vs_prefill']} from the prefill")
+    check(out["bf16_chain_vs_prefill"] <= BF16_NOISE_FACTOR * out["bf16_noise"],
+          f"bf16: the decode chain is {out['bf16_chain_vs_prefill']} from the prefill, more "
+          f"than {BF16_NOISE_FACTOR} x the bf16 noise {out['bf16_noise']}")
+    return out
+
+
+@phase("4i serving mamba2-370m at full width and depth (bf16)")
+def serving_ssm_full(dev) -> dict:
+    """mamba2-370m (48 Mamba-2 layers, d_model 1024, d_inner 2048, 32 SSD
+    heads of 64, d_state 128, chunk 256; tied embeddings; bf16, 0.37 G
+    parameters) served as phase 4d serves tinyllama (no attention: the
+    prompt copies are its kernels), then ``ssm_decode_chain``."""
+    from repro_torch.configs import get_config
+
+    sync(dev)
+    torch.cuda.empty_cache()
+    return serve_full(dev, get_config(MAMBA2))
 
 
 # --------------------------------------------------------------------------- phase 6
@@ -2286,14 +2626,16 @@ def times_4(dev, gen) -> list:
               f"{cold_ms(lambda: fa.flash_attention(qh, kh, vh), 20, flush):.4f} ms, "
               f"SDPA {cold_ms(sdpa(qh, kh, vh), 20, flush):.4f} ms, "
               f"bound {bound_other:.4f} ms (operations)")
-    row["slice9_shapes"] = [flash_at(dev, gen, flush, name, *shape, gqa=gqa)
-                            for name, shape in SLICE9_FLASH_SHAPES]
+    row["prefill_shapes"] = [flash_at(dev, gen, flush, name, *shape, gqa=gqa)
+                             for name, shape in PREFILL_FLASH_SHAPES]
     return [row]
 
 
-#: phase 5d's slice-9 prefill shapes: (B, S, H, KV, hd, window), causal
-SLICE9_FLASH_SHAPES = (("gemma3-1b prefill", (1, 2048, 4, 1, 256, 1024)),
-                       ("qwen2-vl-2b prefill", (1, 2048, 12, 2, 128, 0)))
+#: phase 5d's prefill shapes of the models served since slice 9: (B, S, H,
+#: KV, hd, window), causal
+PREFILL_FLASH_SHAPES = (("gemma3-1b prefill", (1, 2048, 4, 1, 256, 1024)),
+                        ("qwen2-vl-2b prefill", (1, 2048, 12, 2, 128, 0)),
+                        ("deepseek-moe-16b prefill", (1, 2048, 16, 16, 128, 0)))
 
 
 def flash_at(dev, gen, flush, name, B, S, H, KV, hd, window, *, gqa: bool) -> dict:
@@ -2531,32 +2873,44 @@ def _forced_queue_full(dev) -> None:
     print(f"QueueFull after {len(futs)} fenced copies; its trace is closed")
 
 
-def _round_trips(dev, n: int, wait_policy: str) -> dict:
-    """Mean host seconds of one 4 KiB copy submitted and waited for under
-    ``wait_policy``, on an untraced and a traced device, n each, in the
-    order u t t u."""
+def _round_trips(dev, n: int, policies) -> dict:
+    """Host seconds of one 4 KiB copy submitted and waited for under each
+    wait policy of ``policies``, on an untraced and a traced device each:
+    n trips a device, then n more in the reverse order of devices.  Per
+    policy the mean and the median of each device's 2 n trips."""
     from repro_torch.core import make_device
 
-    devices = {name: make_device(wait_policy=wait_policy, trace=trace, device=dev)
-               for name, trace in (("untraced", None), ("traced", 1.0))}
+    devices = {(wp, name): make_device(wait_policy=wp, trace=trace, device=dev)
+               for wp in policies for name, trace in (("untraced", None), ("traced", 1.0))}
     x = torch.zeros(1024, dtype=torch.int32, device=dev)
     secs = {k: [] for k in devices}
-    for name in ("untraced", "traced", "traced", "untraced"):
-        d = devices[name]
+    order = list(devices)
+    for key in order + order[::-1]:
+        d = devices[key]
         d.memcpy_async(x).wait()
-        t0 = time.perf_counter()
         for _ in range(n):
+            t0 = time.perf_counter()
             d.memcpy_async(x).wait()
-        secs[name].append((time.perf_counter() - t0) / n)
-    return {k: statistics.mean(v) for k, v in secs.items()}
+            secs[key].append(time.perf_counter() - t0)
+    out = {wp: {} for wp in policies}
+    for (wp, name), v in secs.items():
+        out[wp][name] = statistics.mean(v)
+        out[wp][f"{name}_median"] = statistics.median(v)
+    return out
+
+
+#: phase 3e: a spin wait's median 4 KiB round trip may be at most this many
+#: times umwait's (it was 60-90 times, PR 20, when its poll loop kept the GIL
+#: the launching PE thread needs)
+SPIN_OVER_UMWAIT_LIMIT = 1.25
 
 
 @phase("3e traced main path")
-def traced_main_path(dev, gen, sizes=(4 * KiB, MiB, 64 * MiB),
-                     n_round_trips=(("umwait", 1000), ("spin", 50))) -> dict:
-    """``n_round_trips``: 4 KiB round trips timed per wait policy (fewer
-    under spin: its poll loop holds the GIL, so the PE thread that launches
-    each copy waits for a thread switch)."""
+def traced_main_path(dev, gen, sizes=(4 * KiB, MiB, 64 * MiB), n_round_trips=500) -> dict:
+    """``n_round_trips``: 4 KiB round trips timed per device and pass
+    (``_round_trips``: umwait and spin, each traced and untraced).  Spin's
+    host-free share must be 0 and its median untraced round trip within
+    SPIN_OVER_UMWAIT_LIMIT of umwait's."""
     from repro_torch.core.completion import WAIT_POLICIES
 
     out = {"host_free": {}, "breakdown": {}}
@@ -2568,9 +2922,16 @@ def traced_main_path(dev, gen, sizes=(4 * KiB, MiB, 64 * MiB),
         print(f"{wp}: host-free share {r['host_free']:.4f} over {r['waits']} waits "
               f"(equal to WaitStats'); {r['ticks']} sampler ticks")
     _forced_queue_full(dev)
-    out["round_trip_4k_s"] = {wp: _round_trips(dev, n, wp) for wp, n in n_round_trips}
-    print("4 KiB round trip by wait policy, untraced and traced, s: "
-          + json.dumps(out["round_trip_4k_s"]))
+    out["round_trip_4k_s"] = rt = _round_trips(dev, n_round_trips, ("umwait", "spin"))
+    spin, umwait = rt["spin"]["untraced_median"], rt["umwait"]["untraced_median"]
+    print("4 KiB round trip by wait policy, untraced and traced, s: " + json.dumps(rt))
+    print(f"median untraced 4 KiB round trip: spin {spin * 1e3:.4f} ms, umwait "
+          f"{umwait * 1e3:.4f} ms; spin below umwait: {spin < umwait}")
+    check(out["host_free"]["spin"] == 0.0,
+          f"spin billed host-free time: share {out['host_free']['spin']}")
+    check(spin <= SPIN_OVER_UMWAIT_LIMIT * umwait,
+          f"the median 4 KiB round trip under spin, {spin} s, is more than "
+          f"{SPIN_OVER_UMWAIT_LIMIT} x umwait's, {umwait} s")
     print("phase breakdown under umwait: " + json.dumps(out["breakdown"]["umwait"]))
     return out
 
@@ -2899,6 +3260,21 @@ def run() -> int:
     del shapes2
     rows.update({r["name"]: r for r in times_3(dev, gen)})
     rows.update({r["name"]: r for r in times_4(dev, gen)})
+    # slice 10: the MoE and SSM families, last: 4h holds deepseek-moe-16b in
+    # f32 (65.5 GB), so nothing of the earlier phases may still be held;
+    # each path sets the counts to 0 just before it and reads them just
+    # after it
+    moe_ssm_small = serving_moe_ssm_small(dev)
+    for arch, res in moe_ssm_small.items():
+        launched = res["launches"]
+        print(f"launches serving {arch} reduced on the card (phase 3h): {launched}")
+        check(launched["memcpy_words"] > 0
+              and (launched["flash_attention"] > 0) == (arch != MAMBA2),
+              f"phase 3h, {arch}: launches {launched}")
+    moe_full = serving_moe_full(dev)
+    print(f"launches while serving deepseek-moe-16b (phase 4h): {moe_full['launches']}")
+    ssm_full = serving_ssm_full(dev)
+    print(f"launches while serving mamba2-370m (phase 4i): {ssm_full['launches']}")
     print("checkpoint of tinyllama-1.1b (2 of 22 layers), seconds: " + json.dumps(ckpt))
     print("serving, tinyllama-1.1b.reduced() f32 (phase 3d): " + json.dumps(small))
     print("serving, tinyllama-1.1b full width and depth (phase 4d): "
@@ -2907,8 +3283,15 @@ def run() -> int:
     print("serving, gemma3-1b full width and depth (phase 4f): "
           + json.dumps({k: v for k, v in gemma.items() if k != "launches"}))
     print("qwen2-vl-2b full width and depth, prefill and decode (phase 4g): " + json.dumps(vlm))
-    print("flash_attention at the slice-9 prefill shapes (phase 5d): "
-          + json.dumps(rows["flash_attention"]["slice9_shapes"]))
+    print("serving the MoE and SSM families reduced, f32 (phase 3h): "
+          + json.dumps({a: {k: v for k, v in r.items() if k != "launches"}
+                        for a, r in moe_ssm_small.items()}))
+    print("serving, deepseek-moe-16b full width and depth (phase 4h): "
+          + json.dumps({k: v for k, v in moe_full.items() if k != "launches"}))
+    print("serving, mamba2-370m full width and depth (phase 4i): "
+          + json.dumps({k: v for k, v in ssm_full.items() if k != "launches"}))
+    print("flash_attention at the served models' prefill shapes (phase 5d): "
+          + json.dumps(rows["flash_attention"]["prefill_shapes"]))
     print("flash backward against the chunked path (phase 2e): " + json.dumps(bwd))
     print("traced main path (phase 3e): " + json.dumps(
         {"host_free": traced["host_free"], "round_trip_4k_s": traced["round_trip_4k_s"],
@@ -2931,7 +3314,7 @@ def run() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "plain_shape": r["plain_shape"],
             **({"library_call": r["library_call"]} if "library_call" in r else {}),
-            **({"slice9_shapes": r["slice9_shapes"]} if "slice9_shapes" in r else {}),
+            **({"prefill_shapes": r["prefill_shapes"]} if "prefill_shapes" in r else {}),
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

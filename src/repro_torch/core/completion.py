@@ -250,12 +250,30 @@ class WaitPolicy:
 
 
 class SpinWait(WaitPolicy):
-    """Busy-poll: every waited cycle is host-busy, wake latency ~0."""
+    """Busy-poll: every waited cycle is host-busy, wake latency ~0.
+
+    The port launches a descriptor's kernel from a PE worker thread, and
+    that thread needs the GIL.  A poll loop that kept the GIL let it run
+    only at the interpreter's switch interval (5 ms), and one that gives
+    the GIL up for a moment between polls still takes it back at every
+    handoff of the launch.  So while a PE worker is still launching, the
+    loop blocks on its handle (the device's own step, as umwait's monitor
+    arm does); once every kernel is launched, it polls their completion
+    events and gives the GIL up between two polls (``time.sleep(0)``).
+    Every interval is billed busy, as a spinning core's is."""
 
     name = "spin"
 
     def _idle(self, device, stats, deadline):
-        pass  # tight loop — the next pump is the next poll
+        t0 = time.perf_counter()
+        work, _ = device._inflight_work()
+        if work:
+            budget = None if deadline is None else max(deadline - t0, 0.0)
+            concurrent.futures.wait(work, timeout=budget,
+                                    return_when=concurrent.futures.FIRST_COMPLETED)
+        else:
+            time.sleep(0)
+        stats.busy_s += time.perf_counter() - t0
 
 
 class PauseWait(WaitPolicy):

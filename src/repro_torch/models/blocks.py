@@ -1,4 +1,4 @@
-"""Transformer block definitions (the dense family, gemma3's local windows).
+"""Block definitions: dense (with gemma3's local windows), MoE and Mamba-2.
 
 Each block is a pair of plain functions:
 
@@ -10,8 +10,8 @@ Each block is a pair of plain functions:
 one token IN PLACE (the reference returns new arrays; its server
 donates the old ones, so nothing reads them again).  A "local" layer with a
 window keeps a ring cache of ``n_meta + window`` slots with each slot's
-absolute position (-1: empty).  The MoE, SSM and hybrid blocks are not here
-yet.
+absolute position (-1: empty).  An SSM layer's cache is its f32 SSD state
+and its convolution window.  The hybrid block is not here yet.
 """
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -222,9 +224,71 @@ def apply_dense(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
     return x, torch.zeros((), dtype=torch.float32, device=x.device), new_cache
 
 
+def init_moe_layer(gen, cfg: ModelConfig, dtype, n: Stack = None) -> dict:
+    return {
+        "ln1": _zeros((cfg.d_model,), dtype, n, gen.device),
+        "ln2": _zeros((cfg.d_model,), dtype, n, gen.device),
+        "attn": init_attn_params(gen, cfg, dtype, n),
+        "moe": moe_lib.init_moe_params(gen, cfg.moe, cfg.d_model, dtype, n),
+    }
+
+
+def apply_moe(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
+    """Attention, then ``x + moe(rms_norm(x, ln2))``; returns the router's aux loss."""
+    h, new_cache = attn_sub(L.rms_norm(x, p["ln1"], ctx.cfg.norm_eps), p["attn"], ctx,
+                            layer_type, mode, cache)
+    x = x + h
+    y, aux = moe_lib.moe_block(L.rms_norm(x, p["ln2"], ctx.cfg.norm_eps), p["moe"],
+                               ctx.cfg.moe, ctx.cfg.act, dispatch=ctx.moe_dispatch,
+                               mesh=ctx.mesh)
+    return x + y, aux, new_cache
+
+
+def init_ssm_layer(gen, cfg: ModelConfig, dtype, n: Stack = None) -> dict:
+    return {
+        "ln1": _zeros((cfg.d_model,), dtype, n, gen.device),
+        "mixer": ssm_lib.init_mamba2_params(gen, cfg.ssm, cfg.d_model, dtype, n),
+    }
+
+
+def _init_ssm_cache(cfg: ModelConfig, B: int, ssm_cfg, dtype, device) -> dict:
+    H = ssm_cfg.n_heads(cfg.d_model)
+    width = ssm_cfg.d_inner(cfg.d_model) + 2 * ssm_cfg.n_groups * ssm_cfg.d_state
+    return {
+        "ssm_state": torch.zeros((B, H, ssm_cfg.head_dim, ssm_cfg.d_state),
+                                 dtype=torch.float32, device=device),
+        "conv_state": torch.zeros((B, ssm_cfg.d_conv - 1, width), dtype=dtype, device=device),
+    }
+
+
+def apply_ssm(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
+    """The Mamba-2 mixer as a residual block.  Decode writes the new SSD
+    state and convolution window into ``cache`` in place."""
+    cfg = ctx.cfg
+    xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "train":
+        return x + ssm_lib.mamba2_mixer(xn, p["mixer"], cfg.ssm, cfg.d_model), zero, None
+    if mode == "prefill":
+        y, state, conv_state = ssm_lib.mamba2_mixer_with_state(xn, p["mixer"], cfg.ssm,
+                                                               cfg.d_model)
+        return x + y, zero, {"ssm_state": state, "conv_state": conv_state}
+    if mode != "decode":
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
+    y, state, conv_state = ssm_lib.mamba2_decode_step(xn[:, 0], cache["ssm_state"],
+                                                      cache["conv_state"], p["mixer"],
+                                                      cfg.ssm, cfg.d_model)
+    cache["ssm_state"].copy_(state)
+    cache["conv_state"].copy_(conv_state)
+    return x + y[:, None], zero, cache
+
+
 def init_block_cache(cfg: ModelConfig, B: int, layer_type: str, ctx: Ctx, dtype,
                      device) -> dict:
     """Cache structure for one layer (matches what prefill / decode produce)."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise not_ported(f"the {cfg.family} cache")
+    if cfg.family == "ssm":
+        return _init_ssm_cache(cfg, B, cfg.ssm, dtype, device)
+    if cfg.family == "hybrid":
+        raise NotImplementedError("the hybrid cache is not ported to repro_torch yet "
+                                  "(ROADMAP.md, queue 1, item 11: the other families)")
     return _init_attn_cache(cfg, B, layer_type, ctx, dtype, device)

@@ -1,16 +1,19 @@
 """Decoder-stack model assembly: the dense family (llama-style: tinyllama,
 deepseek-67b), gemma3 (periodic local:global attention, qk-norm, tied
-embeddings) and the VLM backbone (qwen2-vl: M-RoPE, patch embeddings), the
+embeddings), the VLM backbone (qwen2-vl: M-RoPE, patch embeddings), MoE
+(deepseek-moe's leading dense layer and MoE stack, llama4-maverick's
+dense / MoE interleave) and the Mamba-2 SSM (attention-free, no RoPE), the
 JAX package's ``repro.models.decoder`` in PyTorch.
 
 ``build_segments`` is the reference's for every family.  The stack is a
 list of segments, walked here by Python loops: a "scan" segment holds
-homogeneous units with stacked [n, ...] parameters (a dense layer, or a
-gemma3 period of 5 local layers and a global one, whose locals stack as
-[n, 5, ...]); an "unroll" segment is a list of per-layer dicts (gemma3's
-trailing partial period).  MoE, SSM, hybrid and encoder-decoder raise
-``NotImplementedError`` when the model is built; ROADMAP.md's queue 1
-lists them.
+homogeneous units with stacked [n, ...] parameters (a dense, MoE or SSM
+layer; a gemma3 period of 5 local layers and a global one, whose locals
+stack as [n, 5, ...]; a llama4 period of a dense layer and an MoE layer,
+{"dense": [n, ...], "moe": [n, ...]}); an "unroll" segment is a list of
+per-layer dicts (gemma3's trailing partial period, deepseek-moe's leading
+dense layer).  Hybrid and encoder-decoder raise ``NotImplementedError``
+when the model is built; ROADMAP.md's queue 1 lists them.
 
 Entry points keep the reference's signatures and trees: ``init(gen)``,
 ``loss(params, batch)``, ``prefill(params, batch, max_cache_len)``,
@@ -18,7 +21,10 @@ Entry points keep the reference's signatures and trees: ``init(gen)``,
 tokens)``.  A dense model's cache is
 ``{"segments": [{"k": [L, B, S, KV, hd], "v": ...}], "lengths": [B]}``;
 a gemma3 period's is ``{"locals": {"k": [n, 5, B, W, KV, hd], "v": ...,
-"pos": [n, 5, B, W]}, "global": {"k": [n, B, S, KV, hd], "v": ...}}``.
+"pos": [n, 5, B, W]}, "global": {"k": [n, B, S, KV, hd], "v": ...}}``; a
+llama4 period's ``{"dense": {"k", "v"}, "moe": {"k", "v"}}``, each [n, B,
+S, KV, hd]; an SSM stack's ``{"ssm_state": [L, B, H, P, N] f32,
+"conv_state": [L, B, d_conv - 1, d_inner + 2 G N]}``.
 """
 from __future__ import annotations
 
@@ -91,7 +97,7 @@ def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
 
 def _check_family(cfg: ModelConfig) -> None:
     """Raise for the families not ported yet."""
-    if cfg.family in ("moe", "ssm", "hybrid", "audio"):
+    if cfg.family in ("hybrid", "audio"):
         raise NotImplementedError(f"the {cfg.family} family ({cfg.name}) is not ported to "
                                   f"repro_torch yet (ROADMAP.md, queue 1, item 11: the other "
                                   f"families)")
@@ -107,34 +113,49 @@ def _stack(trees: List[dict]) -> dict:
                 else torch.stack([t[k] for t in trees])) for k in trees[0]}
 
 
-def _seg_layers(seg: SegmentDef, p_seg, c_seg) -> List[Tuple[dict, str, Optional[dict]]]:
-    """(params, layer type, cache) of each layer of a segment, in stack
-    order; the params and caches are views of the segment's tensors."""
+#: the apply function of each one-layer unit
+_APPLY = {"dense": B.apply_dense, "moe": B.apply_moe, "ssm": B.apply_ssm}
+
+
+def _seg_layers(seg: SegmentDef, p_seg, c_seg) -> List[Tuple[Any, dict, str, Optional[dict]]]:
+    """(apply function, params, layer type, cache) of each layer of a
+    segment, in stack order; the params and caches are views of the
+    segment's tensors."""
     if seg.kind == "unroll":
-        return [(p_seg[i], seg.layer_types[i], None if c_seg is None else c_seg[i])
-                for i in range(seg.n)]
-    if seg.unit == "dense":
-        return [(_layer(p_seg, i), seg.layer_types[i],
+        return [(_APPLY[seg.unit], p_seg[i], seg.layer_types[i],
+                 None if c_seg is None else c_seg[i]) for i in range(seg.n)]
+    if seg.unit in _APPLY:
+        return [(_APPLY[seg.unit], _layer(p_seg, i), seg.layer_types[i],
                  None if c_seg is None else _layer(c_seg, i)) for i in range(seg.n)]
-    out = []  # gemma_period: the locals, then the global, of each period
+    out = []
     for i in range(seg.n):
         p_u = _layer(p_seg, i)
         c_u = None if c_seg is None else _layer(c_seg, i)
+        if seg.unit == "moe_period":  # the dense layer, then the MoE layer
+            for sub, apply in (("dense", B.apply_dense), ("moe", B.apply_moe)):
+                out.append((apply, p_u[sub], "global", None if c_u is None else c_u[sub]))
+            continue
+        # gemma_period: the locals, then the global
         for j in range(len(seg.layer_types) - 1):
-            out.append((_layer(p_u["locals"], j), "local",
+            out.append((B.apply_dense, _layer(p_u["locals"], j), "local",
                         None if c_u is None else _layer(c_u["locals"], j)))
-        out.append((p_u["global"], "global", None if c_u is None else c_u["global"]))
+        out.append((B.apply_dense, p_u["global"], "global",
+                    None if c_u is None else c_u["global"]))
     return out
 
 
 def _seg_cache(seg: SegmentDef, caches: List[dict]):
     """A segment's cache from its layers' caches, in ``_seg_layers``'
-    order: a list (unroll), stacked [n, ...] (scan), or a gemma3 period's
-    {"locals": [n, 5, ...], "global": [n, ...]}."""
+    order: a list (unroll), stacked [n, ...] (scan), a gemma3 period's
+    {"locals": [n, 5, ...], "global": [n, ...]} or a llama4 period's
+    {"dense": [n, ...], "moe": [n, ...]}."""
     if seg.kind == "unroll":
         return caches
-    if seg.unit == "dense":
+    if seg.unit in _APPLY:
         return _stack(caches)
+    if seg.unit == "moe_period":
+        return _stack([{"dense": caches[2 * i], "moe": caches[2 * i + 1]}
+                       for i in range(seg.n)])
     per = len(seg.layer_types)
     return _stack([{"locals": _stack(caches[i * per:(i + 1) * per - 1]),
                     "global": caches[(i + 1) * per - 1]} for i in range(seg.n)])
@@ -146,8 +167,9 @@ class DecoderModel:
     (raising where no card is present), ``"cpu"`` the CPU.  ``remat``
     checkpoints each layer of the training forward (each group of
     ``remat_group`` layers of a dense scan segment when that divides its
-    depth), as the reference's ``jax.checkpoint``; ``moe_dispatch`` is kept
-    for the reference's signature and changes nothing here."""
+    depth), as the reference's ``jax.checkpoint``; ``moe_dispatch`` is the
+    reference's: without a mesh (the port has none yet) "a2a" takes the
+    dense dispatch, as it does there."""
 
     def __init__(self, cfg: ModelConfig, mesh=None, moe_dispatch: str = "dense",
                  remat: bool = True, attn_impl: str = "chunked", tp_comm: str = "auto",
@@ -183,12 +205,21 @@ class DecoderModel:
             "segments": [],
         }
         for seg in self.segments:
-            if seg.kind == "unroll":
+            if seg.kind == "unroll":  # dense layers
                 params["segments"].append([B.init_dense_layer(gen, cfg, dtype, d_ff=seg.d_ff)
                                            for _ in range(seg.n)])
             elif seg.unit == "dense":
                 params["segments"].append(B.init_dense_layer(gen, cfg, dtype, d_ff=seg.d_ff,
                                                              n=seg.n))
+            elif seg.unit == "moe":
+                params["segments"].append(B.init_moe_layer(gen, cfg, dtype, n=seg.n))
+            elif seg.unit == "ssm":
+                params["segments"].append(B.init_ssm_layer(gen, cfg, dtype, n=seg.n))
+            elif seg.unit == "moe_period":
+                params["segments"].append({
+                    "dense": B.init_dense_layer(gen, cfg, dtype,
+                                                d_ff=cfg.moe.d_ff_dense or cfg.d_ff, n=seg.n),
+                    "moe": B.init_moe_layer(gen, cfg, dtype, n=seg.n)})
             else:  # gemma_period
                 nl = len(seg.layer_types) - 1
                 params["segments"].append({
@@ -202,15 +233,17 @@ class DecoderModel:
     def _make_ctx(self, positions, max_cache_len: int = 0, lengths=None,
                   positions_thw=None) -> B.Ctx:
         cfg = self.cfg
+        ctx = B.Ctx(cfg=cfg, mesh=self.mesh, lengths=lengths, moe_dispatch=self.moe_dispatch,
+                    max_cache_len=max_cache_len, window=cfg.window_size,
+                    remat=self.remat, attn_impl=self.attn_impl, tp_comm=self.tp_comm)
+        if cfg.family == "ssm":  # attention-free: no rotary tables
+            return ctx
         if cfg.vlm is not None and positions_thw is not None:
             cos, sin = L.mrope_cos_sin(positions_thw, cfg.head_dim, cfg.rope_theta,
                                        cfg.vlm.mrope_sections)
         else:
             cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-        ctx = B.Ctx(cfg=cfg, mesh=self.mesh, cos_local=cos, sin_local=sin,
-                    lengths=lengths, moe_dispatch=self.moe_dispatch,
-                    max_cache_len=max_cache_len, window=cfg.window_size,
-                    remat=self.remat, attn_impl=self.attn_impl, tp_comm=self.tp_comm)
+        ctx.cos_local, ctx.sin_local = cos, sin
         if cfg.rope_theta_global:
             ctx.cos_global, ctx.sin_global = L.rope_cos_sin(positions, cfg.head_dim,
                                                             cfg.rope_theta_global)
@@ -255,8 +288,8 @@ class DecoderModel:
             layers = _seg_layers(seg, p_seg, c_seg)
             if mode == "train":
                 def run(xx, aux, chunk):
-                    for p_l, lt, _ in chunk:
-                        xx, a, _ = B.apply_dense(xx, p_l, ctx, lt, "train", None)
+                    for apply, p_l, lt, _ in chunk:
+                        xx, a, _ = apply(xx, p_l, ctx, lt, "train", None)
                         aux = aux + a
                     return xx, aux
 
@@ -276,8 +309,8 @@ class DecoderModel:
                 new_segs.append(None)
                 continue
             caches = []
-            for p_l, lt, c_l in layers:
-                x, a, nc = B.apply_dense(x, p_l, ctx, lt, mode, c_l)
+            for apply, p_l, lt, c_l in layers:
+                x, a, nc = apply(x, p_l, ctx, lt, mode, c_l)
                 aux_total = aux_total + a
                 caches.append(nc)
             new_segs.append(_seg_cache(seg, caches) if mode == "prefill" else c_seg)
@@ -329,8 +362,8 @@ class DecoderModel:
         for seg in self.segments:
             if seg.kind == "unroll":
                 segs.append([layer(lt) for lt in seg.layer_types])
-            else:  # one unit's layer types, n times: a dense layer or a period
-                unit = seg.layer_types if seg.unit == "gemma_period" else seg.layer_types[:1]
+            else:  # one unit's layer types, n times: one layer or a period
+                unit = seg.layer_types if seg.unit.endswith("period") else seg.layer_types[:1]
                 segs.append(_seg_cache(seg, [layer(lt) for lt in unit * seg.n]))
         return {"segments": segs,
                 "lengths": torch.zeros((bsz,), dtype=torch.int32, device=self.device)}

@@ -272,8 +272,7 @@ def test_make_batch_draws_tokens_from_a_generator():
     assert torch.equal(again["tokens"], b["tokens"]) and "loss_mask" not in again
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llama4-maverick-400b-a17b", "mamba2-370m",
-                                  "hymba-1.5b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "seamless-m4t-medium"])
 def test_families_not_ported_yet_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError):
