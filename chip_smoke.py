@@ -67,7 +67,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      (phase 4e(i)'s training shape), windowed Sq > Skv cases with rows
      that see no key or only the meta keys, gemma3-1b's local layers (hd
      256, window 1024), qwen2-vl-2b's (hd 128) and deepseek-moe-16b's (MHA,
-     16 heads of 128) at 2048 tokens, bf16 and f32;
+     16 heads of 128) at 2048 tokens, hymba-1.5b's (25 heads over 5 KV
+     heads, 128 meta tokens, window 1024 and 0) at 2048 + 128 and 333 +
+     128 positions, bf16 and f32;
   3d. the slice-4 main path at a small size: tinyllama-1.1b.reduced() in f32
      served (6 requests of 16-77 tokens, 4 new tokens each) by the
      ``VhostStyleServer`` with ``attn_impl="flash"`` on the card, and with the
@@ -147,13 +149,37 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      launch); a prefill of 2047 tokens and one decode step against a
      prefill of 2048: f32 within 1e-3, bf16 within twice the measured
      noise;
+  3i. hymba-1.5b at reduced() size (4 one-layer segments) and at 8 layers
+     (a scanned run of 3 local layers), f32, served on the card and on the
+     CPU as in 3h with a ``PagedKVPool`` as in 3d (the same tokens, every
+     splice checked, one flash launch a layer a prefill), then a 12-token
+     prompt decoded 12 steps past the window of 16 on both (logits and
+     every cache leaf within 1e-4, each ring holding the 4 meta positions
+     and the last 16); seamless-m4t-medium
+     at reduced() size: prefill and 12 decode steps on both, no flash
+     launch (its attention is the chunked path, as the reference's);
+  4j. hymba-1.5b at full width and depth (32 layers, d_model 1600, 25 / 5
+     heads of 64 beside 50 SSD heads, 128 meta tokens, window 1024 on 29
+     layers; bf16, 1.64 G parameters) served as in 4d: 32 x 8 flash
+     launches, every splice bit-exact on every leaf (rings and SSM states
+     included); a 1000-token prompt decoded 200 steps past the 1024-slot
+     ring, its logits at three lengths past the wrap against a fresh
+     prefill: with the weights in f32 within 1e-3, in bf16 within twice the
+     bf16 noise measured in the run; flash against chunked prefill logits
+     as in 4d;
+  4k. seamless-m4t-medium at full width and depth (12 + 12 layers, d_model
+     1024, vocab 256206; bf16, 0.98 G parameters) through the model API: 4
+     x 64 tokens over 160 frame embeddings, 16 greedy steps, the last
+     step's logits against a teacher-forced prefill within 0.08; prefill
+     and decode-step seconds;
   5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
      ``scaled_dot_product_attention``, also at hd 128 and 256, and at the
-     gemma3-1b, qwen2-vl-2b and deepseek-moe-16b prefill shapes with their bounds over the
-     visible (q, k) pairs and SDPA (with an explicit boolean mask for the
-     window); fill against
+     gemma3-1b, qwen2-vl-2b, deepseek-moe-16b and hymba-1.5b (a local and a
+     global layer) prefill shapes with their bounds over the visible (q, k)
+     pairs and SDPA (with an explicit boolean mask for the window and the
+     meta keys); fill against
      ``Tensor.fill_`` interleaved call by call); the device work of one
      delta apply on the leaf (``torch.profiler``); the save and restore
      seconds of phase 4c; ``ops.crc32`` end to end at 4 KiB .. 1 GiB;
@@ -161,7 +187,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      and read just after: every kernel of the path must have launched
      (flash_attention and memcpy_words in 3f and 4f, flash_attention in
      4g; memcpy_words, and flash_attention except for mamba2, in 3h, 4h and
-     4i); and
+     4i; flash_attention once a layer a prefill in 3i and 4j, never for
+     seamless in 3i and 4k); and
      of one ``ops.crc32`` at 4 KiB .. 1 GiB: one CRC launch, plus the
      sub-chunk fold only where a chunk is longer than one sub-chunk.
 
@@ -173,6 +200,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import importlib
 import json
 import math
 import re
@@ -181,6 +210,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 import zlib
 from pathlib import Path
 
@@ -1395,6 +1425,16 @@ FLASH_CASES = (
     # tokens and at the 333-token prompt (a partial last tile)
     (1, 2048, 2048, 16, 16, 128, True, 0, 0, torch.bfloat16),
     (1, 333, 333, 16, 16, 128, True, 0, 0, torch.bfloat16),
+    # slice 11: hymba-1.5b's prefill, 25 query heads over 5 KV heads (a group
+    # of 5) behind 128 meta tokens (two whole 64-key tiles): a local layer
+    # (window 1024) and a global one (window 0, n_meta passed as the model
+    # does) at 2048 + 128 positions, the 333-token prompt's local layer
+    # (the window longer than the sequence), and f32 at a group of 5 with a
+    # ragged tail
+    (1, 2176, 2176, 25, 5, 64, True, 1024, 128, torch.bfloat16),
+    (1, 2176, 2176, 25, 5, 64, True, 0, 128, torch.bfloat16),
+    (1, 461, 461, 25, 5, 64, True, 1024, 128, torch.bfloat16),
+    (2, 200, 200, 25, 5, 64, True, 64, 128, torch.float32),
 )
 
 
@@ -1434,17 +1474,33 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def release(dev) -> None:
+    """Return what earlier phases freed to the card before a full-size
+    phase measures or allocates, and hold that no reference cycle kept any
+    of it: the collector must free nothing on the card, or a phase's
+    tensors would outlive it until the collector happened to run."""
+    sync(dev)
+    held = torch.cuda.memory_allocated(dev)
+    gc.collect()
+    sync(dev)
+    freed = held - torch.cuda.memory_allocated(dev)
+    check(freed == 0, f"the collector freed {freed} B on the card: a reference cycle held "
+          f"tensors of an earlier phase")
+    torch.cuda.empty_cache()
+
+
 def pin_admission(device):
     """Wait for each prompt copy burst as it is submitted, so the server
     admits each request in the step after its copies went out, on the card
     as on the CPU.  An MoE's capacity at decode makes a request's tokens
     depend on which requests share its decode steps (ROADMAP.md, held for
     parity), so two servers serve the same tokens only if they admit at the
-    same steps."""
-    submit = device.batch_async
+    same steps.  The wrapper holds the device weakly, so it makes no
+    reference cycle."""
+    submit = weakref.WeakMethod(device.batch_async)
 
     def batch_async(*a, **kw):
-        fut = submit(*a, **kw)
+        fut = submit()(*a, **kw)
         fut.wait()
         return fut
 
@@ -1581,12 +1637,10 @@ def kv_pool_round_trip(pool, gen) -> None:
 
 
 @phase("4d serving tinyllama-1.1b at full width and depth (bf16, flash)")
-def serving_full(dev, cfg=None) -> dict:
-    """``cfg`` (default: tinyllama-1.1b) lets a CPU rehearsal run a reduced
-    config through the same steps."""
+def serving_full(dev) -> dict:
     from repro_torch.configs import get_config
 
-    return serve_full(dev, cfg or get_config("tinyllama-1.1b"))
+    return serve_full(dev, get_config("tinyllama-1.1b"))
 
 
 @phase("4f serving gemma3-1b at full width and depth (bf16, flash)")
@@ -1649,10 +1703,11 @@ def serve_full(dev, cfg) -> dict:
     checked (``checked_splices``), flash launches once an attention layer
     a prefill (never for an SSM) and the prompt copies go through
     memcpy_words and batch_copy_pages; time to first token, decode
-    tokens/s, peak memory; then, on the 2048-token prompt, an SSM's
-    ``ssm_decode_chain`` or any other model's ``flash_vs_chunked`` (its
-    prefill's logits under "flash" against "chunked"), which may change
-    the parameters: nothing reads them after it."""
+    tokens/s, peak memory; then a hybrid's ``ring_check`` and, on the
+    2048-token prompt, an SSM's ``ssm_decode_chain`` or any other model's
+    ``flash_vs_chunked`` (its prefill's logits under "flash" against
+    "chunked"), which may change the parameters: nothing reads them after
+    it."""
     from repro_torch import tree as ttree
     from repro_torch.core import make_device
     from repro_torch.models.api import build_model
@@ -1749,6 +1804,8 @@ def serve_full(dev, cfg) -> dict:
         f"check {d['splice_check_s']:.4f} + the rest "
         f"{d['ttft_s'] - d['prefill_s'] - d['splice_check_s']:.4f}" for d in split))
     del server
+    if cfg.family == "hybrid":
+        out.update(ring_check(model, params, dev))
     compare = ssm_decode_chain if cfg.family == "ssm" else flash_vs_chunked
     out.update(compare(model, params, {"tokens": torch.from_numpy(prompts[0])[None]}, dev))
     return out
@@ -1856,16 +1913,17 @@ def f32_in_place(tree):
     f32 copy, the largest first, each old leaf freed before the next copy
     is made; a leaf whose f32 copy does not fit beside it on the card goes
     through the host.  Returns ``tree``."""
-    slots = []
-
-    def walk(node):
+    # an explicit stack, not a recursive closure: a nested function that
+    # calls itself is a reference cycle, which would hold ``slots`` (and
+    # through it every leaf's parent) until the collector runs
+    slots, stack = [], [tree]
+    while stack:
+        node = stack.pop()
         for k, v in (node.items() if isinstance(node, dict) else enumerate(node)):
             if isinstance(v, (dict, list)):
-                walk(v)
+                stack.append(v)
             else:
                 slots.append((node, k))
-
-    walk(tree)
     for node, k in sorted(slots, key=lambda s: -s[0][s[1]].numel()):
         t, dev = node[k], node[k].device
         if t.is_cuda and t.dtype != torch.float32:
@@ -1996,10 +2054,10 @@ def vlm_batch(cfg, seed: int) -> dict:
     }
 
 
-def vlm_rollout(model, params, batch, n_new: int, dev, tokens=None):
+def rollout(model, params, batch, n_new: int, dev, tokens=None):
     """Prefill ``batch`` on ``dev`` and decode ``n_new`` - 1 steps, feeding
     ``tokens`` [n_new, B] (greedy when None).  Returns (the logits of each
-    step, the tokens fed, prefill seconds, decode seconds)."""
+    step, the tokens fed, prefill seconds, decode seconds, the cache)."""
     batch = {k: v.to(dev) for k, v in batch.items()}
     t0 = time.perf_counter()
     cache, logits, _ = model.prefill(params, batch, batch["tokens"].shape[1] + n_new)
@@ -2013,8 +2071,57 @@ def vlm_rollout(model, params, batch, n_new: int, dev, tokens=None):
         logits, cache = model.decode_step(params, cache, tok[:, None])
         outs.append(logits)
     sync(dev)
-    check(int(cache["lengths"][0]) == batch["tokens"].shape[1] + n_new - 1, "decode lengths")
-    return outs, fed, prefill_s, time.perf_counter() - t0
+    check(int(cache["lengths"][0])
+          == getattr(model, "n_meta", 0) + batch["tokens"].shape[1] + n_new - 1, "decode lengths")
+    return outs, fed, prefill_s, time.perf_counter() - t0, cache
+
+
+def same_cache(got, want, what: str) -> float:
+    """Every leaf of two caches of one model on the card and the CPU: the
+    same names, shapes and types, lengths and ring positions equal, the
+    rest within SERVE_F32_TOL.  Returns the largest difference."""
+    from repro_torch import tree as ttree
+
+    g, w = ttree.flatten_with_names(got), ttree.flatten_with_names(want)
+    check([n for n, _ in g] == [n for n, _ in w], f"{what}: the caches' leaves differ")
+    worst = 0.0
+    for (name, a), (_, b) in zip(g, w):
+        a = a.cpu()
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{what}: leaf {name}")
+        if name == "lengths" or name.endswith("/pos"):
+            check(torch.equal(a, b), f"{what}: leaf {name} differs")
+            continue
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+        check(torch.allclose(a, b, **SERVE_F32_TOL), f"{what}: leaf {name} differs by "
+              f"{float((a.float() - b.float()).abs().max())}")
+    return worst
+
+
+def card_and_cpu_rollout(dev, cfg, batch, n_new: int, seed: int) -> dict:
+    """``cfg``'s model (flash asked for) with the same weights on the card
+    and the CPU: ``batch`` prefilled and decoded ``n_new`` - 1 steps, the
+    card greedy and the CPU fed the card's tokens; every step's logits and
+    every leaf of the final caches within SERVE_F32_TOL.  The counts are
+    set to 0 before the card's rollout and read after it.  Returns the
+    largest differences, the launches and the card's cache."""
+    from repro_torch import tree as ttree
+    from repro_torch.models.api import build_model
+
+    card = build_model(cfg, remat=False, attn_impl="flash", device=dev)
+    params = card.init(torch.Generator(device=dev).manual_seed(seed))
+    host_model = build_model(cfg, remat=False, attn_impl="flash", device="cpu")
+    reset_counts()
+    on_card, fed, _, _, card_cache = rollout(card, params, batch, n_new, dev)
+    sync(dev)
+    counts = read_counts(SLICE4)
+    on_cpu, _, _, _, cpu_cache = rollout(host_model, ttree.tree_map(lambda t: t.cpu(), params),
+                                         batch, n_new, torch.device("cpu"), tokens=fed)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(on_card, on_cpu))
+    check(all(bool(torch.isfinite(a).all()) for a in on_card), f"{cfg.name}: non-finite logits")
+    check(all(torch.allclose(a.cpu(), b, **SERVE_F32_TOL) for a, b in zip(on_card, on_cpu)),
+          f"{cfg.name} in f32: card and CPU logits differ by {err}")
+    cache_err = same_cache(card_cache, cpu_cache, f"{cfg.name} card vs CPU cache")
+    return {"logits_err": err, "cache_err": cache_err, "launches": counts, "cache": card_cache}
 
 
 @phase("4g qwen2-vl-2b at full width and depth through the model API (bf16, flash)")
@@ -2024,7 +2131,7 @@ def vlm_full(dev) -> dict:
     16 x 16 patch embeddings, 16 greedy steps; flash launches once a layer
     in the prefill; the prefill's logits under "flash" against "chunked";
     then the same batch at ``reduced()`` size in f32 on the card and on the
-    CPU (prefill and teacher-forced decode logits within SERVE_F32_TOL)."""
+    CPU (``card_and_cpu_rollout``)."""
     from repro_torch import tree as ttree
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
@@ -2038,7 +2145,7 @@ def vlm_full(dev) -> dict:
     batch = vlm_batch(cfg, 7)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    logits, toks, prefill_s, decode_s = vlm_rollout(model, params, batch, VLM_NEW, dev)
+    logits, toks, prefill_s, decode_s, _ = rollout(model, params, batch, VLM_NEW, dev)
     counts = read_counts(("flash_attention",))
     peak = torch.cuda.max_memory_allocated(dev) - base
     check(all(bool(torch.isfinite(lg).all()) and lg.shape == (VLM_BATCH, cfg.vocab_size)
@@ -2056,18 +2163,10 @@ def vlm_full(dev) -> dict:
     del model, params, logits
     # the same batch at reduced() size in f32, on the card and on the CPU
     small = dataclasses.replace(cfg.reduced(), dtype="float32")
-    small_batch = vlm_batch(small, 7)
-    card = build_model(small, remat=False, attn_impl="flash", device=dev)
-    p_card = card.init(torch.Generator(device=dev).manual_seed(4))
-    on_card, fed, _, _ = vlm_rollout(card, p_card, small_batch, VLM_NEW, dev)
-    host_model = build_model(small, remat=False, attn_impl="flash", device="cpu")
-    on_cpu, _, _, _ = vlm_rollout(host_model, ttree.tree_map(lambda t: t.cpu(), p_card),
-                                  small_batch, VLM_NEW, torch.device("cpu"), tokens=fed)
-    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(on_card, on_cpu))
-    check(all(torch.allclose(a.cpu(), b, **SERVE_F32_TOL) for a, b in zip(on_card, on_cpu)),
-          f"reduced qwen2-vl in f32: card and CPU logits differ by {err}")
+    res = card_and_cpu_rollout(dev, small, vlm_batch(small, 7), VLM_NEW, seed=4)
+    err = res["logits_err"]
     print(f"reduced qwen2-vl (f32), the same batch: prefill and {VLM_NEW - 1} decode steps' "
-          f"logits max |card - CPU| {err:.3e}")
+          f"logits max |card - CPU| {err:.3e}, cache leaves {res['cache_err']:.3e}")
     out["reduced_card_vs_cpu"] = err
     return out
 
@@ -2142,8 +2241,7 @@ def serving_moe_full(dev) -> dict:
     serves tinyllama; ``flash_vs_chunked`` then reports its routing."""
     from repro_torch.configs import get_config
 
-    sync(dev)
-    torch.cuda.empty_cache()
+    release(dev)
     print(f"held on the card before the phase: {torch.cuda.memory_allocated(dev)} B")
     return serve_full(dev, get_config(DEEPSEEK_MOE))
 
@@ -2211,9 +2309,302 @@ def serving_ssm_full(dev) -> dict:
     prompt copies are its kernels), then ``ssm_decode_chain``."""
     from repro_torch.configs import get_config
 
-    sync(dev)
-    torch.cuda.empty_cache()
+    release(dev)
     return serve_full(dev, get_config(MAMBA2))
+
+
+# --------------------------------------------------------------------------- phases 3i, 4j and 4k
+#: slice 11: the hybrid family (hymba-1.5b: attention and Mamba-2 heads side
+#: by side in each layer, 128 meta tokens before every sequence, a
+#: 1024-token window on all but the 3 global layers) and the
+#: encoder-decoder (seamless-m4t-medium: 12 bidirectional encoder layers
+#: over 160 stub frame embeddings, 12 decoder layers with cross-attention)
+HYMBA, SEAMLESS = "hymba-1.5b", "seamless-m4t-medium"
+#: phase 3i: hymba reduced() (4 layers, one-layer segments) and at 8 layers
+#: with global layers (0, 4, 7), whose run of 3 local layers is a scanned
+#: segment; served prompts, and a ring check of a 12-token prompt decoded
+#: 12 steps past the reduced window of 16
+HYBRID_SMALL_LAYERS = (4, 8)
+HYBRID_SMALL_PROMPTS = (16, 77, 33, 50, 64, 21)
+HYBRID_SMALL_NEW = 8
+SMALL_RING_PROMPT, SMALL_STEPS = 12, 12
+#: phase 4j's ring check: a 1000-token prompt decoded 200 greedy steps, past
+#: the 1024-slot ring after 24; the steps whose logits are held against a
+#: fresh prefill of the same prefix, in f32 within 1e-3 as 4i's decode
+#: chain (1.57e-5 to 1.70e-5 on the card); test_window_cache.py's bf16
+#: bound of 0.1 is below the 32 layers' bf16 rounding noise alone (0.118
+#: at 1121 tokens on the card), so bf16 is held to twice that noise
+RING_PROMPT, RING_STEPS, RING_CHECKS = 1000, 200, (50, 120, 199)
+RING_F32_TOL = dict(atol=1e-3, rtol=1e-3)
+#: phase 4k: batch, prompt and new tokens; the last decode step's logits
+#: against a teacher-forced prefill within test_ssd.py's bound
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_NEW = 4, 64, 16
+TEACHER_TOL = dict(atol=0.08, rtol=0.08)
+
+
+def hybrid_cfg(layers=None, dtype=None):
+    """hymba-1.5b, or its reduced() form at ``layers`` layers (global
+    layers first, middle and last); ``dtype`` replaces the config's."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYMBA)
+    if layers is not None:
+        cfg = cfg.reduced()
+        if layers != cfg.num_layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers, hybrid=dataclasses.replace(
+                cfg.hybrid, global_layers=(0, layers // 2, layers - 1)))
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def check_rings(cache, n_meta: int, window: int, total: int) -> int:
+    """Every local layer's ring (a ``pos`` leaf) holds the n_meta meta
+    positions in its first slots and exactly the last ``window`` of
+    ``total`` positions in the rest.  Returns the rings checked."""
+    from repro_torch import tree as ttree
+
+    rings = 0
+    for name, pos in ttree.flatten_with_names(cache):
+        if not name.endswith("/pos"):
+            continue
+        for row in pos.reshape(-1, pos.shape[-1]).tolist():
+            check(row[:n_meta] == list(range(n_meta)),
+                  f"{name}: the meta slots hold {row[:n_meta]}")
+            check(sorted(row[n_meta:]) == list(range(total - window, total)),
+                  f"{name}: the ring holds other positions than the last {window} of {total}")
+            rings += 1
+    return rings
+
+
+@phase("3i hymba and seamless on the card and on the CPU (reduced(), f32)")
+def serving_hybrid_encdec_small(dev) -> dict:
+    """hymba at reduced() size and at 8 layers (a scanned hybrid segment),
+    f32, each served as phase 3d serves tinyllama (a ``PagedKVPool``
+    reserving the prompts' pages, then a swap out and back) with admission
+    pinned and every splice checked (the same tokens on the card and the
+    CPU; one flash launch a layer a prefill), then a 12-token prompt decoded 12
+    steps past the window of 16 on both (``card_and_cpu_rollout``) with the
+    4 meta tokens kept in every ring; seamless at reduced() size (2 + 4
+    layers, 24 source frames): prefill of 2 x 24 tokens and 12 decode steps
+    on both (``card_and_cpu_rollout``), no flash launch (the reference's
+    encoder-decoder runs the chunked path).  Returns each model's results
+    with the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_device
+    from repro_torch.serving.kv_pool import PagedKVPool
+
+    release(dev)
+    print(f"held on the card before the phase: {torch.cuda.memory_allocated(dev)} B")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    for layers in HYBRID_SMALL_LAYERS:
+        cfg = hybrid_cfg(layers, "float32")
+        n_meta, W = cfg.hybrid.num_meta_tokens, cfg.window_size
+        check(SMALL_RING_PROMPT + SMALL_STEPS > W and min(HYBRID_SMALL_PROMPTS) + HYBRID_SMALL_NEW > W,
+              "phase 3i's rings must wrap in decode")
+        splices: list = []
+        print(f"{HYMBA} reduced to {layers} layers: {cfg.layer_types()}, {n_meta} meta tokens, "
+              f"window {W}")
+        device = make_device(n_instances=2, policy="least_loaded", device=dev)
+        pool = PagedKVPool(n_device_pages=32, n_host_pages=16, page_tokens=16,
+                           kv_dim=2 * cfg.num_kv_heads * cfg.head_dim, dtype=torch.float32,
+                           device=device)
+        res = serve_card_and_cpu(dev, cfg, HYBRID_SMALL_PROMPTS, max_new=HYBRID_SMALL_NEW,
+                                 prompt_seed=9, splices=splices, pin=True, device=device,
+                                 kv_pool=pool)
+        check(pool.stats.device_pages_used == 0 and not pool.page_table,
+              f"KV pages leaked: {pool.stats}")
+        kv_pool_round_trip(pool, gen=torch.Generator(device=dev).manual_seed(5))
+        check(len(splices) == 2 * len(HYBRID_SMALL_PROMPTS), f"{len(splices)} splices checked")
+        check(res["launches"]["flash_attention"] == layers * len(HYBRID_SMALL_PROMPTS),
+              f"flash launched {res['launches']['flash_attention']} times serving "
+              f"{len(HYBRID_SMALL_PROMPTS)} prompts through {layers} layers")
+        res["splices_checked"] = len(splices)
+        toks = np.random.default_rng(10).integers(0, cfg.vocab_size, (1, SMALL_RING_PROMPT))
+        ring = card_and_cpu_rollout(dev, cfg, {"tokens": torch.from_numpy(toks.astype(np.int32))},
+                                    SMALL_STEPS + 1, seed=11)
+        total = n_meta + SMALL_RING_PROMPT + SMALL_STEPS
+        rings = check_rings(ring.pop("cache"), n_meta, W, total)
+        check(rings == sum(t == "local" for t in cfg.layer_types()), f"{rings} rings checked")
+        res["ring"] = {k: v for k, v in ring.items() if k != "launches"}
+        print(f"ring check: {SMALL_RING_PROMPT}-token prompt and {SMALL_STEPS} decode steps; "
+              f"logits max |card - CPU| {ring['logits_err']:.3e}, cache leaves "
+              f"{ring['cache_err']:.3e}; {rings} rings hold the {n_meta} meta positions and the "
+              f"last {W} of {total}")
+        out[f"{HYMBA} {layers}L"] = res
+    cfg = dataclasses.replace(get_config(SEAMLESS).reduced(), dtype="float32")
+    rng = np.random.default_rng(12)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)),
+             "frame_embeds": torch.from_numpy(
+                 (rng.normal(size=(2, cfg.encoder.source_len, cfg.d_model)) * 0.02)
+                 .astype(np.float32))}
+    res = card_and_cpu_rollout(dev, cfg, batch, 13, seed=12)
+    res.pop("cache")
+    check(res["launches"]["flash_attention"] == 0,
+          f"seamless launched flash {res['launches']['flash_attention']} times")
+    print(f"{SEAMLESS} reduced ({cfg.encoder.num_layers} + {cfg.num_layers} layers, "
+          f"{cfg.encoder.source_len} frames): prefill of 2 x 24 tokens and 12 decode steps, "
+          f"logits max |card - CPU| {res['logits_err']:.3e}, cache leaves {res['cache_err']:.3e}; "
+          f"launches on the card {res['launches']}")
+    out[SEAMLESS] = res
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"phase 3i: torch.cuda.max_memory_allocated {peak} B")
+    out["max_memory_allocated"] = peak
+    return out
+
+
+def ring_rollout(model, params, prompt, tokens=None):
+    """``prompt`` [1, RING_PROMPT] prefilled and decoded RING_STEPS steps,
+    greedy or fed ``tokens`` (a list of [1] tensors, the first from the
+    prefill).  Returns (the logits at RING_CHECKS, the tokens, seconds a
+    decode step, the final cache)."""
+    dev = prompt.device
+    cache, logits, _ = model.prefill(params, {"tokens": prompt}, RING_PROMPT + RING_STEPS + 8)
+    toks = [logits.argmax(-1).to(torch.int32)] if tokens is None else list(tokens)
+    kept = {}
+    sync(dev)
+    t0 = time.perf_counter()
+    for j in range(RING_STEPS):
+        logits, cache = model.decode_step(params, cache, toks[j][:, None])
+        if tokens is None:
+            toks.append(logits.argmax(-1).to(torch.int32))
+        if j in RING_CHECKS:
+            kept[j] = logits
+    sync(dev)
+    return kept, toks, (time.perf_counter() - t0) / RING_STEPS, cache
+
+
+def ring_check(model, params, dev) -> dict:
+    """A RING_PROMPT-token prompt decoded RING_STEPS greedy steps at batch 1,
+    past the window's ring, in bf16 and, with the weights copied to f32,
+    in f32 fed the same tokens; every ring holds the meta positions and
+    the last window of positions at the end.  At each of RING_CHECKS the
+    step's logits against a fresh prefill of the same prefix: f32 within
+    RING_F32_TOL, bf16 within BF16_NOISE_FACTOR x the bf16 rounding noise
+    of that prefill (bf16 against f32).  Returns the differences and the
+    seconds a decode step."""
+    from repro_torch import tree as ttree
+    from repro_torch.models.api import build_model
+
+    cfg = model.cfg
+    n_meta, W = model.n_meta, cfg.window_size
+    check(RING_PROMPT < W < RING_PROMPT + 1 + min(RING_CHECKS),
+          "phase 4j's ring checks must come after the ring wraps")
+    rng = np.random.default_rng(13)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, RING_PROMPT))
+                              .astype(np.int32)).to(dev)
+    total = n_meta + RING_PROMPT + RING_STEPS
+    p32 = ttree.tree_map(lambda t: t.float(), params)
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), remat=False,
+                      attn_impl=model.attn_impl, device=dev)
+    steps, toks, step_s, cache = ring_rollout(model, params, prompt)
+    rings = check_rings(cache, n_meta, W, total)
+    steps32, _, step32_s, cache = ring_rollout(m32, p32, prompt, toks)
+    check(check_rings(cache, n_meta, W, total) == rings, "f32 rings")
+    del cache
+    out = {"ring_decode_step_s": step_s, "ring_decode_step_f32_s": step32_s,
+           "rings_checked": rings, "ring_f32_err": {}, "ring_bf16_err": {}, "ring_bf16_noise": {}}
+    for j in RING_CHECKS:
+        n = RING_PROMPT + j + 1
+        seq = torch.cat([prompt] + [t[:, None] for t in toks[:j + 1]], dim=1)
+        _, tf, _ = model.prefill(params, {"tokens": seq}, n + 8)
+        _, tf32, _ = m32.prefill(p32, {"tokens": seq}, n + 8)
+        check(bool(torch.isfinite(steps[j]).all() and torch.isfinite(steps32[j]).all()),
+              "ring check: non-finite logits")
+        out["ring_f32_err"][n] = float((steps32[j] - tf32).abs().max())
+        out["ring_bf16_err"][n] = float((steps[j] - tf).abs().max())
+        out["ring_bf16_noise"][n] = noise = float((tf - tf32).abs().max())
+        check(torch.allclose(steps32[j], tf32, **RING_F32_TOL),
+              f"ring check, f32: the decode logits after {n} tokens are "
+              f"{out['ring_f32_err'][n]} from a fresh prefill's")
+        check(out["ring_bf16_err"][n] <= BF16_NOISE_FACTOR * noise,
+              f"ring check, bf16: the decode logits after {n} tokens are "
+              f"{out['ring_bf16_err'][n]} from a fresh prefill's, more than "
+              f"{BF16_NOISE_FACTOR} x the bf16 noise {noise}")
+    del p32, m32
+    torch.cuda.empty_cache()
+    print(f"ring check: a {RING_PROMPT}-token prompt decoded {RING_STEPS} steps at batch 1 "
+          f"({step_s * 1e3:.2f} ms a step in bf16, {step32_s * 1e3:.2f} in f32), past the "
+          f"{W}-slot ring; logits max |decode - prefill| by length: f32 {out['ring_f32_err']}, "
+          f"bf16 {out['ring_bf16_err']} against a bf16 noise of {out['ring_bf16_noise']} "
+          f"(|logits| up to {float(tf32.abs().max()):.3f}); {rings} rings hold the {n_meta} "
+          f"meta positions and the last {W} of {total}")
+    return out
+
+
+@phase("4j serving hymba-1.5b at full width and depth (bf16, flash)")
+def serving_hybrid_full(dev) -> dict:
+    """hymba-1.5b (32 layers, d_model 1600, 25 heads over 5 KV heads of 64,
+    50 SSD heads of 64 with d_state 16 beside them, 128 meta tokens, a
+    1024-token window on all but layers 0, 15 and 31; bf16, 1.64 G
+    parameters) served as phase 4d serves tinyllama: 32 x 8 flash launches,
+    each admission's spliced slot bit-equal to its batch-1 prefill on every
+    leaf (rings and SSM states included); then ``ring_check`` and the
+    2048-token prefill's flash against chunked logits."""
+    release(dev)
+    print(f"held on the card before the phase: {torch.cuda.memory_allocated(dev)} B")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = serve_full(dev, hybrid_cfg())
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    print(f"phase 4j: torch.cuda.max_memory_allocated {out['max_memory_allocated']} B")
+    return out
+
+
+@phase("4k seamless-m4t-medium at full width and depth through the model API (bf16)")
+def encdec_full(dev) -> dict:
+    """seamless-m4t-medium (12 encoder and 12 decoder layers, d_model 1024,
+    16 heads of 64, vocab 256206; bf16, 0.98 G parameters) through
+    ``prefill`` and ``decode_step``: ENCDEC_BATCH x ENCDEC_PROMPT tokens
+    over 160 frame embeddings, ENCDEC_NEW greedy steps, no flash launch
+    (chunked attention, as the reference); the last step's logits against
+    a teacher-forced prefill of the whole sequence within TEACHER_TOL."""
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    cfg = get_config(SEAMLESS)
+    release(dev)
+    base = torch.cuda.memory_allocated(dev)
+    print(f"held on the card before the phase: {base} B")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, remat=False, attn_impl="flash", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(5))
+    n_params = sum(t.numel() for t in ttree.leaves(params))
+    rng = np.random.default_rng(14)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (ENCDEC_BATCH, ENCDEC_PROMPT))
+                                        .astype(np.int32)),
+             "frame_embeds": torch.from_numpy(
+                 (rng.normal(size=(ENCDEC_BATCH, cfg.encoder.source_len, cfg.d_model)) * 0.02)
+                 .astype(np.float32)).to(torch.bfloat16)}
+    reset_counts()
+    logits, fed, prefill_s, decode_s, cache = rollout(model, params, batch, ENCDEC_NEW, dev)
+    counts = read_counts(("flash_attention",))
+    del cache
+    check(counts["flash_attention"] == 0, f"seamless launched flash: {counts}")
+    check(all(bool(torch.isfinite(lg).all()) and lg.shape == (ENCDEC_BATCH, cfg.vocab_size)
+              for lg in logits), "seamless logits: not finite, or of another shape")
+    seq = torch.cat([batch["tokens"]] + [t[:, None] for t in fed], dim=1).to(dev)
+    t0 = time.perf_counter()
+    _, tf, _ = model.prefill(params, {"tokens": seq, "frame_embeds": batch["frame_embeds"].to(dev)},
+                             seq.shape[1])
+    sync(dev)
+    tf_s = time.perf_counter() - t0
+    err = float((logits[-1] - tf).abs().max())
+    check(torch.allclose(logits[-1], tf, **TEACHER_TOL),
+          f"seamless: the last decode step's logits are {err} from the teacher-forced prefill's")
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = {"params": n_params, "prefill_s": prefill_s, "decode_step_s": decode_s / (ENCDEC_NEW - 1),
+           "teacher_forced_prefill_s": tf_s, "teacher_forced_err": err,
+           "logits_absmax": float(tf.abs().max()), "launches": counts,
+           "peak_bytes": peak - base, "max_memory_allocated": peak}
+    print(f"{cfg.name}: {cfg.encoder.num_layers} + {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} params; prefill of {ENCDEC_BATCH} x {ENCDEC_PROMPT} tokens "
+          f"over {cfg.encoder.source_len} frames {prefill_s:.4f} s, {ENCDEC_NEW - 1} decode "
+          f"steps {decode_s:.4f} s ({out['decode_step_s'] * 1e3:.2f} ms a step); the last "
+          f"step's logits max |decode - teacher-forced prefill| {err:.3e} (|logits| up to "
+          f"{out['logits_absmax']:.3f}; the {seq.shape[1]}-token prefill {tf_s:.4f} s); "
+          f"launches {counts}; torch.cuda.max_memory_allocated {peak} B")
+    return out
 
 
 # --------------------------------------------------------------------------- phase 6
@@ -2632,26 +3023,30 @@ def times_4(dev, gen) -> list:
 
 
 #: phase 5d's prefill shapes of the models served since slice 9: (B, S, H,
-#: KV, hd, window), causal
-PREFILL_FLASH_SHAPES = (("gemma3-1b prefill", (1, 2048, 4, 1, 256, 1024)),
-                        ("qwen2-vl-2b prefill", (1, 2048, 12, 2, 128, 0)),
-                        ("deepseek-moe-16b prefill", (1, 2048, 16, 16, 128, 0)))
+#: KV, hd, window, n_meta), causal; hymba-1.5b's at its 2048-token prompt
+#: behind the 128 meta tokens, a local layer and a global one
+PREFILL_FLASH_SHAPES = (("gemma3-1b prefill", (1, 2048, 4, 1, 256, 1024, 0)),
+                        ("qwen2-vl-2b prefill", (1, 2048, 12, 2, 128, 0, 0)),
+                        ("deepseek-moe-16b prefill", (1, 2048, 16, 16, 128, 0, 0)),
+                        ("hymba-1.5b local-layer prefill", (1, 2176, 25, 5, 64, 1024, 128)),
+                        ("hymba-1.5b global-layer prefill", (1, 2176, 25, 5, 64, 0, 128)))
 
 
-def flash_at(dev, gen, flush, name, B, S, H, KV, hd, window, *, gqa: bool) -> dict:
+def flash_at(dev, gen, flush, name, B, S, H, KV, hd, window, n_meta, *, gqa: bool) -> dict:
     """The kernel at one causal bf16 shape beside its bound (over the (q, k)
     pairs the mask leaves visible), its plain version and
     ``scaled_dot_product_attention``: ``is_causal`` without a window; with
-    one an explicit boolean ``attn_mask``, which SDPA's flash backend does
-    not take, so it runs another of its backends."""
+    one an explicit boolean ``attn_mask`` (the meta keys in it), which
+    SDPA's flash backend does not take, so it runs another of its
+    backends."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = flash_inputs(gen, dev, B, S, S, H, KV, hd, torch.bfloat16)
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=True, window=window, n_meta=n_meta)
     pos = torch.arange(S, device=dev)
-    mask = fa.mask_block(pos, pos, causal=True, window=window, n_meta=0)
+    mask = fa.mask_block(pos, pos, causal=True, window=window, n_meta=n_meta)
     pairs = B * int(mask.sum())
     flops = 4 * H * hd * pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
@@ -2677,7 +3072,7 @@ def flash_at(dev, gen, flush, name, B, S, H, KV, hd, window, *, gqa: bool) -> di
     plain_err = float((fa.flash_attention_plain(q, k, v, **kw).float() - got.float())
                       .abs().max())
     out = {"name": name, "shape": f"q [{B}, {S}, {H}, {hd}], k/v [{B}, {S}, {KV}, {hd}] bf16, "
-                                  f"causal, window {window}",
+                                  f"causal, window {window}, n_meta {n_meta}",
            "ms": cold_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, flush),
            "plain_ms": cold_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 5, flush),
            "library_ms": cold_ms(lib, 20, flush), "library_call": call,
@@ -3182,6 +3577,11 @@ def run() -> int:
     # float32 matmuls in full f32 (no TF32), stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # torch imports torch._dynamo on the first torch.utils.checkpoint call,
+    # and that import keeps the calling frames, with the remat phase's
+    # parameters in their locals, in a reference cycle; imported here, it
+    # holds nothing, and release() can hold that no cycle keeps card memory
+    importlib.import_module("torch._dynamo")
     build()
     errs: dict = {}
     kernels_vs_plain(dev, gen, errs)
@@ -3260,6 +3660,18 @@ def run() -> int:
     del shapes2
     rows.update({r["name"]: r for r in times_3(dev, gen)})
     rows.update({r["name"]: r for r in times_4(dev, gen)})
+    # slice 11: hymba and seamless, before 4h (which needs the card's memory
+    # to itself); each path sets the counts to 0 just before it and reads
+    # them just after it
+    hybrid_small = serving_hybrid_encdec_small(dev)
+    for name, res in hybrid_small.items():
+        if isinstance(res, dict):
+            print(f"launches of {name} reduced on the card (phase 3i): {res['launches']}")
+    hybrid_full = serving_hybrid_full(dev)
+    print(f"launches while serving hymba-1.5b (phase 4j): {hybrid_full['launches']}")
+    encdec = encdec_full(dev)
+    print(f"launches of seamless-m4t-medium's prefill and decode (phase 4k): "
+          f"{encdec['launches']}")
     # slice 10: the MoE and SSM families, last: 4h holds deepseek-moe-16b in
     # f32 (65.5 GB), so nothing of the earlier phases may still be held;
     # each path sets the counts to 0 just before it and reads them just
@@ -3290,6 +3702,13 @@ def run() -> int:
           + json.dumps({k: v for k, v in moe_full.items() if k != "launches"}))
     print("serving, mamba2-370m full width and depth (phase 4i): "
           + json.dumps({k: v for k, v in ssm_full.items() if k != "launches"}))
+    print(f"hymba and seamless reduced, f32, card vs CPU (phase 3i) on {card}: " + json.dumps(
+        {a: ({k: v for k, v in r.items() if k != "launches"} if isinstance(r, dict) else r)
+         for a, r in hybrid_small.items()}))
+    print(f"serving, hymba-1.5b full width and depth (phase 4j) on {card}: "
+          + json.dumps({k: v for k, v in hybrid_full.items() if k != "launches"}))
+    print(f"seamless-m4t-medium full width and depth, prefill and decode (phase 4k) on {card}: "
+          + json.dumps({k: v for k, v in encdec.items() if k != "launches"}))
     print("flash_attention at the served models' prefill shapes (phase 5d): "
           + json.dumps(rows["flash_attention"]["prefill_shapes"]))
     print("flash backward against the chunked path (phase 2e): " + json.dumps(bwd))

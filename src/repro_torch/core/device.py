@@ -316,6 +316,13 @@ class Promise(Future):
         return self.record.result
 
 
+def _call_weak(method_ref: weakref.WeakMethod, *args) -> None:
+    """Call the method behind ``method_ref`` while its object lives."""
+    method = method_ref()
+    if method is not None:
+        method(*args)
+
+
 def op_str(f: Future) -> str:
     return f.record.op or "?"
 
@@ -576,8 +583,13 @@ class Device:
         # live submit rings (weak: a dropped ring must not leak); kick()
         # flushes them so every wait-policy pump advances deferred bursts
         self._rings: List[Any] = []
+        # the engines hold the Device weakly: a Device dropped by its user is
+        # freed at once, with the completion records and their tensors,
+        # rather than when the cycle collector finds the engine <-> Device
+        # cycle
+        on_done = weakref.WeakMethod(self._on_record_done)
         for e in self.engines:
-            e.add_listener(self._on_record_done)
+            e.add_listener(lambda rec, on_done=on_done: _call_weak(on_done, rec))
 
     # ------------------------------------------------------------------ locality
     def register(self, array: Any, node: int) -> Any:
@@ -590,7 +602,7 @@ class Device:
             )
         key = id(array)
         try:
-            ref = weakref.ref(array, lambda _r, k=key: self._homes.pop(k, None))
+            ref = weakref.ref(array, lambda _r, k=key, homes=self._homes: homes.pop(k, None))
         except TypeError:
             ref = None  # unreferenceable objects: entry lives forever
         self._homes[key] = (node, ref)

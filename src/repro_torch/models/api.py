@@ -13,6 +13,7 @@ from repro_torch import tree as ttree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.decoder import DecoderModel
+from repro_torch.models.encdec import EncDecModel
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -30,10 +31,11 @@ def build_model(cfg: ModelConfig, mesh=None, moe_dispatch: str = "dense",
                 remat: bool = True, attn_impl: str = "chunked",
                 tp_comm: str = "auto", remat_group: int = 1, device=None) -> Model:
     """The reference's keyword arguments, plus ``device``: None means CUDA
-    (raising where no card is present), ``"cpu"`` the CPU."""
+    (raising where no card is present), ``"cpu"`` the CPU.  The
+    encoder-decoder ignores ``attn_impl`` and the decoder-only options, as
+    the reference's does."""
     if cfg.family == "audio":
-        raise NotImplementedError("the encoder-decoder model is not ported yet (ROADMAP.md, "
-                                  "queue 1, item 11: the other families)")
+        return EncDecModel(cfg, mesh=mesh, remat=remat, device=device)
     return DecoderModel(cfg, mesh=mesh, moe_dispatch=moe_dispatch, remat=remat,
                         attn_impl=attn_impl, tp_comm=tp_comm, remat_group=remat_group,
                         device=device)
@@ -44,11 +46,11 @@ def make_batch(cfg: ModelConfig, bsz: int, seq: int, gen: torch.Generator,
     """Concrete small batch, drawn from ``gen`` on the generator's device.
     A VLM's batch adds patch embeddings [B, min(num_patches, S - 2), D]
     (they replace the tokens from position 1 and are left out of the loss)
-    and ``positions_thw`` [3, B, S], the sequence index in each stream."""
-    if cfg.encoder is not None:
-        raise NotImplementedError("encoder-decoder batches are not ported yet "
-                                  "(ROADMAP.md, queue 1, item 11: the other families)")
+    and ``positions_thw`` [3, B, S], the sequence index in each stream.  An
+    encoder-decoder's adds ``frame_embeds`` [B, source_len, D], 0.02 x a
+    normal draw in the model's dtype."""
     dev = gen.device
+    dt = getattr(torch, cfg.dtype)
     batch: Dict[str, Any] = {
         "tokens": torch.randint(0, cfg.vocab_size, (bsz, seq), generator=gen,
                                 device=dev, dtype=torch.int32)
@@ -58,11 +60,14 @@ def make_batch(cfg: ModelConfig, bsz: int, seq: int, gen: torch.Generator,
     if cfg.vlm is not None:
         npch = min(cfg.vlm.num_patches, max(seq - 2, 1))
         batch["patch_embeds"] = torch.randn((bsz, npch, cfg.d_model), generator=gen,
-                                            device=dev).to(getattr(torch, cfg.dtype)) * 0.02
+                                            device=dev).to(dt) * 0.02
         pos = torch.arange(seq, dtype=torch.int32, device=dev)[None].expand(bsz, seq)
         batch["positions_thw"] = torch.stack([pos, pos, pos])
         if kind == "train":
             batch["loss_mask"][:, 1:1 + npch] = 0.0
+    if cfg.encoder is not None:
+        batch["frame_embeds"] = torch.randn((bsz, cfg.encoder.source_len, cfg.d_model),
+                                            generator=gen, device=dev).to(dt) * 0.02
     return batch
 
 

@@ -1,4 +1,5 @@
-"""Block definitions: dense (with gemma3's local windows), MoE and Mamba-2.
+"""Block definitions: dense (with gemma3's local windows), MoE, Mamba-2 and
+hymba's hybrid (attention and SSM heads side by side).
 
 Each block is a pair of plain functions:
 
@@ -11,7 +12,8 @@ one token IN PLACE (the reference returns new arrays; its server
 donates the old ones, so nothing reads them again).  A "local" layer with a
 window keeps a ring cache of ``n_meta + window`` slots with each slot's
 absolute position (-1: empty).  An SSM layer's cache is its f32 SSD state
-and its convolution window.  The hybrid block is not here yet.
+and its convolution window; a hybrid layer's is ``{"attn": ..., "ssm":
+...}``, one of each.
 """
 from __future__ import annotations
 
@@ -283,12 +285,59 @@ def apply_ssm(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
     return x + y[:, None], zero, cache
 
 
+def init_hybrid_layer(gen, cfg: ModelConfig, dtype, n: Stack = None) -> dict:
+    return {
+        "ln1": _zeros((cfg.d_model,), dtype, n, gen.device),
+        "ln2": _zeros((cfg.d_model,), dtype, n, gen.device),
+        "attn": init_attn_params(gen, cfg, dtype, n),
+        "mixer": ssm_lib.init_mamba2_params(gen, cfg.hybrid.ssm, cfg.d_model, dtype, n),
+        "attn_out_norm": _zeros((cfg.d_model,), dtype, n, gen.device),
+        "ssm_out_norm": _zeros((cfg.d_model,), dtype, n, gen.device),
+        "mlp": init_mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, n),
+    }
+
+
+def apply_hybrid(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
+    """Hymba (arXiv:2411.13676): attention heads and SSM heads run side by
+    side on the same normalised input; each output is RMS-normalised, the
+    two are averaged, then the MLP runs.  The SSM heads use
+    ``cfg.hybrid.ssm``.  Decode writes both caches in place."""
+    cfg = ctx.cfg
+    scfg = cfg.hybrid.ssm
+    xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    attn_out, new_a_cache = attn_sub(xn, p["attn"], ctx, layer_type, mode,
+                                     cache["attn"] if cache else None)
+    new_cache = None
+    if mode == "train":
+        ssm_out = ssm_lib.mamba2_mixer(xn, p["mixer"], scfg, cfg.d_model)
+    elif mode == "prefill":
+        ssm_out, state, conv_state = ssm_lib.mamba2_mixer_with_state(xn, p["mixer"], scfg,
+                                                                     cfg.d_model)
+        new_cache = {"attn": new_a_cache,
+                     "ssm": {"ssm_state": state, "conv_state": conv_state}}
+    else:
+        s_cache = cache["ssm"]
+        y1, state, conv_state = ssm_lib.mamba2_decode_step(
+            xn[:, 0], s_cache["ssm_state"], s_cache["conv_state"], p["mixer"], scfg,
+            cfg.d_model)
+        s_cache["ssm_state"].copy_(state)
+        s_cache["conv_state"].copy_(conv_state)
+        ssm_out = y1[:, None]
+        new_cache = {"attn": new_a_cache, "ssm": s_cache}
+    h = 0.5 * (L.rms_norm(attn_out, p["attn_out_norm"], cfg.norm_eps)
+               + L.rms_norm(ssm_out, p["ssm_out_norm"], cfg.norm_eps))
+    x = x + h
+    x = x + L.gated_mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg.act,
+                        tp_comm=ctx.tp_comm)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), new_cache
+
+
 def init_block_cache(cfg: ModelConfig, B: int, layer_type: str, ctx: Ctx, dtype,
                      device) -> dict:
     """Cache structure for one layer (matches what prefill / decode produce)."""
     if cfg.family == "ssm":
         return _init_ssm_cache(cfg, B, cfg.ssm, dtype, device)
     if cfg.family == "hybrid":
-        raise NotImplementedError("the hybrid cache is not ported to repro_torch yet "
-                                  "(ROADMAP.md, queue 1, item 11: the other families)")
+        return {"attn": _init_attn_cache(cfg, B, layer_type, ctx, dtype, device),
+                "ssm": _init_ssm_cache(cfg, B, cfg.hybrid.ssm, dtype, device)}
     return _init_attn_cache(cfg, B, layer_type, ctx, dtype, device)

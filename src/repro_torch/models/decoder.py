@@ -2,8 +2,10 @@
 deepseek-67b), gemma3 (periodic local:global attention, qk-norm, tied
 embeddings), the VLM backbone (qwen2-vl: M-RoPE, patch embeddings), MoE
 (deepseek-moe's leading dense layer and MoE stack, llama4-maverick's
-dense / MoE interleave) and the Mamba-2 SSM (attention-free, no RoPE), the
-JAX package's ``repro.models.decoder`` in PyTorch.
+dense / MoE interleave), the Mamba-2 SSM (attention-free, no RoPE) and
+the hybrid (hymba: attention and SSM heads in each layer, learned meta
+tokens prepended to every sequence), the JAX package's
+``repro.models.decoder`` in PyTorch.
 
 ``build_segments`` is the reference's for every family.  The stack is a
 list of segments, walked here by Python loops: a "scan" segment holds
@@ -12,8 +14,8 @@ layer; a gemma3 period of 5 local layers and a global one, whose locals
 stack as [n, 5, ...]; a llama4 period of a dense layer and an MoE layer,
 {"dense": [n, ...], "moe": [n, ...]}); an "unroll" segment is a list of
 per-layer dicts (gemma3's trailing partial period, deepseek-moe's leading
-dense layer).  Hybrid and encoder-decoder raise ``NotImplementedError``
-when the model is built; ROADMAP.md's queue 1 lists them.
+dense layer, hymba's global layers and short local runs).  The
+encoder-decoder is ``repro_torch.models.encdec``.
 
 Entry points keep the reference's signatures and trees: ``init(gen)``,
 ``loss(params, batch)``, ``prefill(params, batch, max_cache_len)``,
@@ -24,7 +26,11 @@ a gemma3 period's is ``{"locals": {"k": [n, 5, B, W, KV, hd], "v": ...,
 "pos": [n, 5, B, W]}, "global": {"k": [n, B, S, KV, hd], "v": ...}}``; a
 llama4 period's ``{"dense": {"k", "v"}, "moe": {"k", "v"}}``, each [n, B,
 S, KV, hd]; an SSM stack's ``{"ssm_state": [L, B, H, P, N] f32,
-"conv_state": [L, B, d_conv - 1, d_inner + 2 G N]}``.
+"conv_state": [L, B, d_conv - 1, d_inner + 2 G N]}``; a hybrid layer's
+``{"attn": {"k", "v"(, "pos")}, "ssm": {"ssm_state", "conv_state"}}``.
+With ``n_meta`` meta tokens (hymba: 128) every sequence is ``n_meta``
+longer: positions, lengths and full caches count the meta prefix, and the
+loss drops its rows.
 """
 from __future__ import annotations
 
@@ -95,14 +101,6 @@ def build_segments(cfg: ModelConfig) -> List[SegmentDef]:
     return [SegmentDef("scan", "dense", cfg.num_layers, lt)]
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    """Raise for the families not ported yet."""
-    if cfg.family in ("hybrid", "audio"):
-        raise NotImplementedError(f"the {cfg.family} family ({cfg.name}) is not ported to "
-                                  f"repro_torch yet (ROADMAP.md, queue 1, item 11: the other "
-                                  f"families)")
-
-
 def _layer(tree: dict, i: int) -> dict:
     """Unit ``i`` of a stacked [n, ...] parameter or cache dict (views)."""
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i]) for k, v in tree.items()}
@@ -114,7 +112,8 @@ def _stack(trees: List[dict]) -> dict:
 
 
 #: the apply function of each one-layer unit
-_APPLY = {"dense": B.apply_dense, "moe": B.apply_moe, "ssm": B.apply_ssm}
+_APPLY = {"dense": B.apply_dense, "moe": B.apply_moe, "ssm": B.apply_ssm,
+          "hybrid": B.apply_hybrid}
 
 
 def _seg_layers(seg: SegmentDef, p_seg, c_seg) -> List[Tuple[Any, dict, str, Optional[dict]]]:
@@ -176,7 +175,6 @@ class DecoderModel:
                  remat_group: int = 1, device=None):
         if mesh is not None:
             raise B.not_ported("a mesh (distributed/)")
-        _check_family(cfg)
         if attn_impl not in ("chunked", "flash"):
             raise ValueError(f"attn_impl must be 'chunked' or 'flash', got {attn_impl!r}")
         self.cfg = cfg
@@ -189,6 +187,7 @@ class DecoderModel:
         self.segments = build_segments(cfg)
         self.dtype = getattr(torch, cfg.dtype)
         self.device = resolve_device(device)
+        self.n_meta = cfg.hybrid.num_meta_tokens if cfg.hybrid is not None else 0
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator) -> dict:
@@ -205,9 +204,14 @@ class DecoderModel:
             "segments": [],
         }
         for seg in self.segments:
-            if seg.kind == "unroll":  # dense layers
+            if seg.kind == "unroll" and seg.unit == "hybrid":
+                params["segments"].append([B.init_hybrid_layer(gen, cfg, dtype)
+                                           for _ in range(seg.n)])
+            elif seg.kind == "unroll":  # dense layers
                 params["segments"].append([B.init_dense_layer(gen, cfg, dtype, d_ff=seg.d_ff)
                                            for _ in range(seg.n)])
+            elif seg.unit == "hybrid":
+                params["segments"].append(B.init_hybrid_layer(gen, cfg, dtype, n=seg.n))
             elif seg.unit == "dense":
                 params["segments"].append(B.init_dense_layer(gen, cfg, dtype, d_ff=seg.d_ff,
                                                              n=seg.n))
@@ -227,13 +231,16 @@ class DecoderModel:
                     "global": B.init_dense_layer(gen, cfg, dtype, n=seg.n)})
         if not cfg.tie_embeddings:
             params["unembed"] = normal(cfg.d_model, cfg.vocab_size)
+        if self.n_meta:
+            params["meta_tokens"] = normal(self.n_meta, cfg.d_model)
         return _to(params, self.device)
 
     # ------------------------------------------------------------------ ctx
     def _make_ctx(self, positions, max_cache_len: int = 0, lengths=None,
                   positions_thw=None) -> B.Ctx:
         cfg = self.cfg
-        ctx = B.Ctx(cfg=cfg, mesh=self.mesh, lengths=lengths, moe_dispatch=self.moe_dispatch,
+        ctx = B.Ctx(cfg=cfg, mesh=self.mesh, lengths=lengths, n_meta=self.n_meta,
+                    moe_dispatch=self.moe_dispatch,
                     max_cache_len=max_cache_len, window=cfg.window_size,
                     remat=self.remat, attn_impl=self.attn_impl, tp_comm=self.tp_comm)
         if cfg.family == "ssm":  # attention-free: no rotary tables
@@ -267,6 +274,9 @@ class DecoderModel:
             pe = batch["patch_embeds"].to(self.dtype)
             at = max(0, min(1, x.shape[1] - pe.shape[1]))
             x = torch.cat([x[:, :at], pe, x[:, at + pe.shape[1]:]], dim=1)
+        if self.n_meta:
+            meta = params["meta_tokens"][None].expand(x.shape[0], -1, -1).to(self.dtype)
+            x = torch.cat([meta, x], dim=1)
         return x
 
     def _unembed_w(self, params):
@@ -320,12 +330,15 @@ class DecoderModel:
     def loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
         """batch {"tokens": [B, S] int, "loss_mask": [B, S] (optional), and
         for a VLM "patch_embeds", "positions_thw"} -> (loss, {"ce", "aux"}):
-        next-token CE with the last position masked, through ``_chunked_ce``."""
+        next-token CE with the last position masked, through ``_chunked_ce``;
+        the meta tokens' rows are dropped first."""
         tokens = batch["tokens"]
         bsz, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device)[None].expand(bsz, S)
+        total = S + self.n_meta
+        positions = torch.arange(total, device=tokens.device)[None].expand(bsz, total)
         ctx = self._make_ctx(positions, positions_thw=batch.get("positions_thw"))
         x, aux, _ = self._run_stack(params, self._embed(params, tokens, batch), ctx, "train")
+        x = x[:, self.n_meta:]
         labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
         mask = batch.get("loss_mask")
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
@@ -338,22 +351,26 @@ class DecoderModel:
     # ------------------------------------------------------------------ prefill / decode
     def prefill(self, params, batch, max_cache_len: int):
         """batch {"tokens": [B, S] int, and for a VLM "patch_embeds",
-        "positions_thw"} -> (cache, last_logits [B, V] f32, lengths [B])."""
+        "positions_thw"} -> (cache, last_logits [B, V] f32, lengths [B]).
+        Lengths and full caches count the meta prefix: S + n_meta tokens
+        in caches of max_cache_len + n_meta."""
         tokens = batch["tokens"]
         bsz, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device)[None].expand(bsz, S)
-        ctx = self._make_ctx(positions, max_cache_len=max_cache_len,
+        total = S + self.n_meta
+        positions = torch.arange(total, device=tokens.device)[None].expand(bsz, total)
+        ctx = self._make_ctx(positions, max_cache_len=max_cache_len + self.n_meta,
                              positions_thw=batch.get("positions_thw"))
         x, _, cache = self._run_stack(params, self._embed(params, tokens, batch), ctx,
                                       "prefill")
         last_logits = L.unembed(x[:, -1], *self._unembed_w(params))
-        lengths = torch.full((bsz,), S, dtype=torch.int32, device=tokens.device)
+        lengths = torch.full((bsz,), total, dtype=torch.int32, device=tokens.device)
         cache["lengths"] = lengths
         return cache, last_logits, lengths
 
     def init_cache(self, bsz: int, max_cache_len: int) -> dict:
         cfg = self.cfg
-        ctx = B.Ctx(cfg=cfg, window=cfg.window_size, max_cache_len=max_cache_len)
+        ctx = B.Ctx(cfg=cfg, n_meta=self.n_meta, window=cfg.window_size,
+                    max_cache_len=max_cache_len + self.n_meta)
 
         def layer(lt):
             return B.init_block_cache(cfg, bsz, lt, ctx, self.dtype, self.device)

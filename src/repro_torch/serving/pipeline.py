@@ -148,6 +148,11 @@ class VhostStyleServer:
                  slo_classes=None, admission=None, tracker=None):
         from repro_torch.launch.steps import make_decode_step
 
+        if getattr(getattr(model, "cfg", None), "encoder", None) is not None:
+            raise ValueError(
+                f"{model.cfg.name} is an encoder-decoder: the server prefills "
+                "prompt tokens only and has no frame embeddings to encode, as "
+                "the JAX package's; drive it through prefill and decode_step")
         self.model = model
         self.params = params
         self.slots = slots
@@ -548,18 +553,20 @@ def _splice_cache(batch_cache, one_cache, slot: int):
     ``locals`` stack once more inside the unit ([n, 5, B, ...]).  (The JAX
     package guesses the axis from the shapes and writes a period's locals
     along the layer axis.)"""
-
-    def splice(dst, src, axis: int):
-        if isinstance(dst, dict):
-            for k in dst:
-                splice(dst[k], src[k], axis + (k == "locals"))
-        elif isinstance(dst, list):
-            for d, s in zip(dst, src):
-                splice(d, s, axis)
-        else:
-            dst.select(axis, slot).copy_(src.select(axis, 0))
-
     for d, s in zip(batch_cache["segments"], one_cache["segments"]):
-        splice(d, s, 0 if isinstance(d, list) else 1)
+        _splice_leaves(d, s, 0 if isinstance(d, list) else 1, slot)
     batch_cache["lengths"][slot] = one_cache["lengths"][0]
     return batch_cache
+
+
+def _splice_leaves(dst, src, axis: int, slot: int):
+    """Row 0 of every leaf of ``src`` into row ``slot`` of ``dst``'s, along
+    ``axis`` (one more inside a period's ``locals``)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _splice_leaves(dst[k], src[k], axis + (k == "locals"), slot)
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src):
+            _splice_leaves(d, s, axis, slot)
+    else:
+        dst.select(axis, slot).copy_(src.select(axis, 0))

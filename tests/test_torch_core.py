@@ -5,8 +5,10 @@ detector, and the port's import rules."""
 import ast
 import copy
 import dataclasses
+import gc
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -345,6 +347,25 @@ def test_lockcheck_matches_reference():
 
 
 # --------------------------------------------------------------------------- device selection and import rules
+def test_a_dropped_device_is_freed_without_the_collector():
+    """The engines hold their Device weakly, and the buffer registry's
+    callbacks hold only the registry, so a Device its user drops goes at
+    once with its engines' completion records, and the tensors they hold,
+    not when the cycle collector runs."""
+    gc.collect()
+    gc.disable()
+    try:
+        device = T.make_device(n_instances=2, device="cpu")
+        src = device.register(torch.arange(4096, dtype=torch.int32), 0)
+        out = device.memcpy_async(src).result()
+        assert torch.equal(out, src)
+        gone = [weakref.ref(device), weakref.ref(device.engines[0]), weakref.ref(out)]
+        del device, out
+        assert [r() is None for r in gone] == [True, True, True]
+    finally:
+        gc.enable()
+
+
 def test_make_device_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

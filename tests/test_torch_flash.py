@@ -39,6 +39,10 @@ CASES = [
     (1, 1, 1, 4, 2, 32, True, 0, 0),
     (1, 33, 33, 4, 1, 64, True, 0, 0),
     (2, 77, 77, 4, 2, 32, True, 16, 4),
+    # hymba's head grouping (5 query heads a KV head) with a meta prefix of
+    # two whole 64-key tiles, windowed and global
+    (1, 200, 200, 5, 1, 64, True, 64, 128),
+    (1, 200, 200, 10, 2, 64, True, 0, 128),
 ]
 
 
@@ -288,6 +292,9 @@ TILE_CASES = [
     (1, 300, 100, 2, 1, 64, False, 32, 0),
     (1, 300, 100, 2, 1, 64, True, 32, 4),
     (1, 300, 100, 2, 1, 32, False, 16, 3),
+    # hymba's 128 meta tokens (two whole meta tiles, walked first) at a
+    # group of 5, with a window shorter than the 192 tokens behind them
+    (1, 320, 320, 5, 1, 64, True, 128, 128),
 ]
 
 

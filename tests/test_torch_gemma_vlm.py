@@ -48,74 +48,26 @@ from repro_torch.models.api import build_model, make_batch, params_from_numpy
 from repro_torch.models.decoder import build_segments
 from repro_torch.optim.gradients import GradAccumulator
 from repro_torch.serving import pipeline as t_pipe
+from _torch_ref import BF16_NOISE_FACTOR, close_rel, JaxModel, moved_norms, np32, RTOL, same
 
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
 LAYER_TOL = dict(atol=1e-6, rtol=1e-6)
-RTOL = 1e-5
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MAX_CACHE = 48
-#: a bf16 cache leaf may be this many times the bf16 rounding noise from
-#: the reference's
-BF16_NOISE_FACTOR = 2.0
 #: (architecture, depth): gemma3 below one period (4 unrolled layers) and
 #: at one period plus 2 trailing locals; qwen2-vl at reduced()'s 4 layers
 CASES = [("gemma3-1b", 4), ("gemma3-1b", 8), ("qwen2-vl-2b", 4)]
 CASE_IDS = ["gemma3-4L", "gemma3-8L", "qwen2vl"]
 
 
-def np32(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().float().numpy()
-    return np.asarray(x, np.float32)
-
-
 def close(got, want, dtype="float32"):
     np.testing.assert_allclose(np32(got), np32(want), **TOL[dtype])
-
-
-def close_rel(got, want):
-    """rtol 1e-5, atol 1e-5 of ``want``'s largest magnitude."""
-    w = np32(want)
-    scale = float(np.abs(w).max()) if w.size else 0.0
-    np.testing.assert_allclose(np32(got), w, rtol=RTOL, atol=RTOL * scale)
-
-
-def same(got, want):
-    g = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
-    np.testing.assert_array_equal(g, np.asarray(want))
 
 
 def cfgs(arch, layers, dtype="float32"):
     kw = dict(dtype=dtype, num_layers=layers)
     return (dataclasses.replace(j_get_config(arch).reduced(), **kw),
             dataclasses.replace(get_config(arch).reduced(), **kw))
-
-
-def _moved_norms(params, seed):
-    """The JAX parameters with every norm gain (zeros at init) drawn at 0.1
-    scale, so the norms' weights are held as well."""
-    rng = np.random.default_rng(seed)
-
-    def move(path, a):
-        name = str(path[-1])
-        if "norm" in name or "ln" in name:
-            return (a.astype(jnp.float32) + 0.1 * rng.normal(size=a.shape)).astype(a.dtype)
-        return a
-
-    return jax.tree_util.tree_map_with_path(move, params)
-
-
-class JaxModel:
-    """The reference model with its entry points jitted."""
-
-    def __init__(self, cfg, impl, remat):
-        self.model = j_build(cfg, remat=remat, attn_impl=impl)
-        self.cfg = cfg
-        self.init = self.model.init
-        self.init_cache = self.model.init_cache
-        self.prefill = jax.jit(self.model.prefill, static_argnums=(2,))
-        self.decode_step = jax.jit(self.model.decode_step)
-        self.value_and_grad = jax.jit(jax.value_and_grad(self.model.loss, has_aux=True))
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,7 +77,7 @@ def jax_model(arch, layers, dtype, impl, remat=False):
 
 def models(arch, layers, dtype, impl, seed=0, remat=False):
     jm = jax_model(arch, layers, dtype, impl, remat)
-    jp = _moved_norms(jm.init(jax.random.key(seed)), seed)
+    jp = moved_norms(jm.init(jax.random.key(seed)), seed)
     tm = build_model(cfgs(arch, layers, dtype)[1], remat=remat, attn_impl=impl, device="cpu")
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
@@ -410,9 +362,13 @@ def test_make_batch_draws_the_vlm_fields_from_a_generator():
     assert b["loss_mask"][:, 1:1 + P].abs().sum() == 0 and b["loss_mask"][:, 1 + P:].all()
     again = make_batch(cfg, 2, 9, torch.Generator().manual_seed(1), kind="prefill")
     assert torch.equal(again["patch_embeds"], b["patch_embeds"]) and "loss_mask" not in again
-    with pytest.raises(NotImplementedError):
-        make_batch(get_config("seamless-m4t-medium").reduced(), 1, 4,
-                   torch.Generator().manual_seed(0))
+    # an encoder-decoder's batch carries frame embeddings [B, source_len, D]
+    # in the model's dtype at 0.02 scale
+    audio = get_config("seamless-m4t-medium").reduced()
+    fe = make_batch(audio, 1, 4, torch.Generator().manual_seed(0))["frame_embeds"]
+    assert tuple(fe.shape) == (1, audio.encoder.source_len, audio.d_model)
+    assert fe.dtype == torch.bfloat16
+    assert 0.01 < float(fe.float().std()) < 0.03
 
 
 # --------------------------------------------------------------------------- counterparts of the reference's model tests

@@ -54,11 +54,10 @@ from repro_torch.models.decoder import build_segments
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.gradients import GradAccumulator
 from repro_torch.serving import pipeline as t_pipe
+from _torch_ref import (BF16_ATOL, BF16_NOISE_FACTOR, close_bf16, close_rel, JaxModel,
+                        moved_norms, np32, pin_admission, RTOL, same)
 
-RTOL = 1e-5
 ROUTER_TOL = dict(atol=1e-6, rtol=1e-6)
-BF16_ATOL = 5e-2
-BF16_NOISE_FACTOR = 2.0
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MAX_CACHE = 48
 DEEPSEEK, LLAMA4, MAMBA2 = "deepseek-moe-16b", "llama4-maverick-400b-a17b", "mamba2-370m"
@@ -66,63 +65,9 @@ ARCHS = (DEEPSEEK, LLAMA4, MAMBA2)
 ARCH_IDS = ("deepseek", "llama4", "mamba2")
 
 
-def np32(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().float().numpy()
-    return np.asarray(x, np.float32)
-
-
-def close_rel(got, want, err_msg=""):
-    """rtol 1e-5, atol 1e-5 of ``want``'s largest magnitude."""
-    w = np32(want)
-    scale = float(np.abs(w).max()) if w.size else 0.0
-    np.testing.assert_allclose(np32(got), w, rtol=RTOL, atol=RTOL * scale, err_msg=err_msg)
-
-
-def close_bf16(got, want, want32, err_msg=""):
-    """Within BF16_NOISE_FACTOR x the reference's own bf16-vs-f32 distance
-    (or BF16_ATOL where that is larger)."""
-    noise = float(np.abs(np32(want) - np32(want32)).max()) if np32(want).size else 0.0
-    np.testing.assert_allclose(np32(got), np32(want), rtol=BF16_ATOL,
-                               atol=max(BF16_ATOL, BF16_NOISE_FACTOR * noise),
-                               err_msg=f"{err_msg} (bf16 noise {noise})")
-
-
-def same(got, want):
-    g = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
-    np.testing.assert_array_equal(g, np.asarray(want))
-
-
 def cfgs(arch, dtype="float32"):
     return (dataclasses.replace(j_get_config(arch).reduced(), dtype=dtype),
             dataclasses.replace(get_config(arch).reduced(), dtype=dtype))
-
-
-def _moved_norms(params, seed):
-    """The JAX parameters with every norm gain (zeros at init) drawn at 0.1
-    scale, so the norms' weights are held as well."""
-    rng = np.random.default_rng(seed)
-
-    def move(path, a):
-        name = str(path[-1])
-        if "norm" in name or "ln" in name:
-            return (a.astype(jnp.float32) + 0.1 * rng.normal(size=a.shape)).astype(a.dtype)
-        return a
-
-    return jax.tree_util.tree_map_with_path(move, params)
-
-
-class JaxModel:
-    """The reference model with its entry points jitted."""
-
-    def __init__(self, cfg, impl, remat):
-        self.model = j_build(cfg, remat=remat, attn_impl=impl)
-        self.cfg = cfg
-        self.init = self.model.init
-        self.init_cache = self.model.init_cache
-        self.prefill = jax.jit(self.model.prefill, static_argnums=(2,))
-        self.decode_step = jax.jit(self.model.decode_step)
-        self.value_and_grad = jax.jit(jax.value_and_grad(self.model.loss, has_aux=True))
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,7 +77,7 @@ def jax_model(arch, dtype, impl, remat=False):
 
 def models(arch, dtype, impl, seed=0, remat=False):
     jm = jax_model(arch, dtype, impl, remat)
-    jp = _moved_norms(jm.init(jax.random.key(seed)), seed)
+    jp = moved_norms(jm.init(jax.random.key(seed)), seed)
     tm = build_model(cfgs(arch, dtype)[1], remat=remat, attn_impl=impl, device="cpu")
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
@@ -447,7 +392,7 @@ def test_mamba2_mixer_and_decode_step_match_the_reference(rng, S):
     the reference's rounding noise."""
     jcfg, cfg = _mixer_cfgs(chunk_size=32, d_state=16, head_dim=16)
     d_model = 32
-    jp = _moved_norms(JSSM.init_mamba2_params(jax.random.key(1), jcfg, d_model, jnp.float32), 1)
+    jp = moved_norms(JSSM.init_mamba2_params(jax.random.key(1), jcfg, d_model, jnp.float32), 1)
     x = (rng.normal(size=(2, S, d_model)) * 0.5).astype(np.float32)
     outs = {}
     for dtype in ("float32", "bfloat16"):
@@ -729,24 +674,6 @@ def test_splice_cache_writes_along_each_leafs_batch_axis(arch):
         for other in (0, 1):
             assert torch.equal(leaf.select(axis, other), init[name].select(axis, other)), name
     same_cache_values(tc, jc, "float32")
-
-
-def pin_admission(device):
-    """Wait for each prompt copy burst as it is submitted, so the server
-    admits every request in the step after its copies went out, whatever
-    the engines' speed.  At decode the reduced MoE's capacity is 1 (3
-    slots, top-2 of 4 experts), so a request's tokens depend on which
-    requests share its decode steps (ROADMAP.md, held for parity), and two
-    servers that admit at other steps serve other tokens."""
-    submit = device.batch_async
-
-    def batch_async(*a, **kw):
-        fut = submit(*a, **kw)
-        fut.wait()
-        return fut
-
-    device.batch_async = batch_async
-    return device
 
 
 def test_moe_tokens_depend_on_their_neighbours_in_both_packages():
