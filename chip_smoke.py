@@ -109,8 +109,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      ``launch/train.py``'s ``train()`` at full width, depth cut to 2 of 22
      layers, saves every 2 steps with kernel CRCs on 2 engines, run whole
      (no restart) and with a crash injected after step 4's save (exactly
-     that one restart): the resumed run's step-6
-     checkpoint equals the whole run's, its manifest CRCs are zlib's;
+     that one restart), on the host mesh with ZeRO-1 specs: the resumed
+     run's step-6 checkpoint equals the whole run's bit for bit, its
+     manifest CRCs are zlib's;
   3f. gemma3-1b.reduced() at 8 layers (one period of 5 local layers with a
      16-token ring and a global one, then 2 local layers) in f32, served
      (6 requests of 16-77 tokens, 8 new tokens each, 3 slots; the ring wraps
@@ -172,6 +173,22 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      x 64 tokens over 160 frame embeddings, 16 greedy steps, the last
      step's logits against a teacher-forced prefill within 0.08; prefill
      and decode-step seconds;
+  3j. the host mesh (``make_host_mesh``: one rank, ("data", "model") of
+     (1, 1); NCCL on the card, gloo on the CPU, in one process group):
+     tinyllama-1.1b and deepseek-moe-16b (a2a dispatch) at reduced() size
+     in f32, built on the mesh with flash and tp_comm="manual_bf16", their
+     parameters laid out by the rules as DTensors, served under the rules
+     as in 3h: the same tokens on the card's mesh and the CPU's, every
+     splice checked, one flash launch a layer a prefill, the a2a's
+     all-reduces counted; tinyllama's tokens also those of the same
+     weights with no mesh;
+  4l. both at full width and depth on the card's host mesh, served as in
+     4d: tinyllama-1.1b must serve 4d's tokens; deepseek-moe-16b with the
+     a2a dispatch, every splice bit-exact, its TTFT and decode steps
+     printed beside 4h's, and its 2048-token prefill under the a2a and the
+     dense dispatch with the capacity factor raised to ceil(E / k) (no
+     drops in either): within twice the bf16 noise measured in the run
+     (the dense dispatch with the weights made f32 in place);
   5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
@@ -1669,9 +1686,10 @@ def checked_splices(out: list):
 
     def splice(batch_cache, one_cache, slot):
         t0 = time.perf_counter()
-        before = [t.clone() for t in ttree.leaves(batch_cache["segments"])]
+        before = [local(t).clone() for t in ttree.leaves(batch_cache["segments"])]
         got = base(batch_cache, one_cache, slot)
-        dst, src = ttree.leaves(got["segments"]), ttree.leaves(one_cache["segments"])
+        dst = [local(t) for t in ttree.leaves(got["segments"])]
+        src = [local(t) for t in ttree.leaves(one_cache["segments"])]
         check(len(dst) == len(src) == len(before), "the spliced cache's leaves")
         for d, s, b in zip(dst, src, before):
             axes = [i for i, (m, n) in enumerate(zip(d.shape, s.shape)) if m != n]
@@ -1686,7 +1704,8 @@ def checked_splices(out: list):
             check(same_bits(d.index_select(ax, idx), b.index_select(ax, idx)),
                   f"the splice into slot {slot} changed another slot of a leaf "
                   f"{tuple(d.shape)}")
-        check(int(got["lengths"][slot]) == int(one_cache["lengths"][0]), "spliced length")
+        check(int(local(got["lengths"])[slot]) == int(local(one_cache["lengths"])[0]),
+              "spliced length")
         out.append((len(dst), time.perf_counter() - t0))
         return got
 
@@ -1697,26 +1716,33 @@ def checked_splices(out: list):
         pipeline._splice_cache = base
 
 
-def serve_full(dev, cfg) -> dict:
+def serve_full(dev, cfg, *, mesh=None, moe_dispatch="dense", compare="default") -> dict:
     """Serve FULL_PROMPTS through 4 slots at ``cfg``'s width and depth
     (bf16, flash): every request completes, every admission's splice is
     checked (``checked_splices``), flash launches once an attention layer
     a prefill (never for an SSM) and the prompt copies go through
     memcpy_words and batch_copy_pages; time to first token, decode
-    tokens/s, peak memory; then a hybrid's ``ring_check`` and, on the
-    2048-token prompt, an SSM's ``ssm_decode_chain`` or any other model's
-    ``flash_vs_chunked`` (its prefill's logits under "flash" against
-    "chunked"), which may change the parameters: nothing reads them after
-    it."""
+    tokens/s, peak memory, the served tokens; then a hybrid's
+    ``ring_check`` and, on the 2048-token prompt, ``compare``: by default
+    an SSM's ``ssm_decode_chain`` or any other model's ``flash_vs_chunked``
+    (its prefill's logits under "flash" against "chunked"), which may
+    change the parameters: nothing reads them after it.  With ``mesh`` the
+    model is built on it with ``moe_dispatch``, its parameters laid out by
+    ``tree_shardings`` (DTensors over the same storage), and it serves
+    under the mesh's rules; ``compare`` is then the caller's (None:
+    nothing)."""
     from repro_torch import tree as ttree
     from repro_torch.core import make_device
     from repro_torch.models.api import build_model
 
     sync(dev)
     base = torch.cuda.memory_allocated(dev)
-    model = build_model(cfg, remat=False, attn_impl="flash", device=dev)
+    model = build_model(cfg, mesh=mesh, moe_dispatch=moe_dispatch, remat=False,
+                        attn_impl="flash", device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(2))
+    if mesh is not None:
+        params = placed(params, mesh)
     sync(dev)
     n_params = sum(t.numel() for t in ttree.leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in ttree.leaves(params))
@@ -1756,7 +1782,7 @@ def serve_full(dev, cfg) -> dict:
     reset_counts()
     model.prefill = timed_prefill
     try:
-        with checked_splices(splices):
+        with checked_splices(splices), on_mesh(mesh):
             reqs, server, secs = serve(model, params, device, prompts, slots=FULL_SLOTS,
                                        max_cache=FULL_CACHE, max_new=FULL_NEW,
                                        wrap_decode=timed)
@@ -1794,7 +1820,8 @@ def serve_full(dev, cfg) -> dict:
            "decode_tok_s": decoded / decode_s[0],
            "steps": m["steps"], "copy_bursts": m["copy_bursts"], "launches": counts,
            "splices_checked": len(splices), "peak_bytes": peak,
-           "params": n_params, "param_bytes": n_bytes}
+           "params": n_params, "param_bytes": n_bytes,
+           "tokens": [r.output for r in reqs]}
     print(f"served 8 requests in {secs:.3f} s ({m['steps']} steps, {m['copy_bursts']} copy "
           f"bursts); {decoded} decoded tokens in {decode_s[1]} decode steps, "
           f"{decode_s[0]:.3f} s ({decoded / decode_s[0]:.1f} tokens/s); time to first token "
@@ -1806,8 +1833,10 @@ def serve_full(dev, cfg) -> dict:
     del server
     if cfg.family == "hybrid":
         out.update(ring_check(model, params, dev))
-    compare = ssm_decode_chain if cfg.family == "ssm" else flash_vs_chunked
-    out.update(compare(model, params, {"tokens": torch.from_numpy(prompts[0])[None]}, dev))
+    if compare == "default":
+        compare = ssm_decode_chain if cfg.family == "ssm" else flash_vs_chunked
+    if compare is not None:
+        out.update(compare(model, params, {"tokens": torch.from_numpy(prompts[0])[None]}, dev))
     return out
 
 
@@ -1912,7 +1941,8 @@ def f32_in_place(tree):
     """Every leaf of the tree of dicts and lists ``tree`` replaced by its
     f32 copy, the largest first, each old leaf freed before the next copy
     is made; a leaf whose f32 copy does not fit beside it on the card goes
-    through the host.  Returns ``tree``."""
+    through the host.  A DTensor leaf (of the one-rank host mesh) becomes
+    its local tensor first.  Returns ``tree``."""
     # an explicit stack, not a recursive closure: a nested function that
     # calls itself is a reference cycle, which would hold ``slots`` (and
     # through it every leaf's parent) until the collector runs
@@ -1924,6 +1954,7 @@ def f32_in_place(tree):
                 stack.append(v)
             else:
                 slots.append((node, k))
+                node[k] = local(v)  # a DTensor of the host mesh: its storage
     for node, k in sorted(slots, key=lambda s: -s[0][s[1]].numel()):
         t, dev = node[k], node[k].device
         if t.is_cuda and t.dtype != torch.float32:
@@ -2168,6 +2199,204 @@ def vlm_full(dev) -> dict:
     print(f"reduced qwen2-vl (f32), the same batch: prefill and {VLM_NEW - 1} decode steps' "
           f"logits max |card - CPU| {err:.3e}, cache leaves {res['cache_err']:.3e}")
     out["reduced_card_vs_cpu"] = err
+    return out
+
+
+# --------------------------------------------------------------------------- phases 3j and 4l
+#: slice 12: the host mesh (``launch.mesh.make_host_mesh``: one rank,
+#: ("data", "model") of (1, 1)), where every spec resolves to replication;
+#: what runs there is the mesh path: DTensors laid out by the rules, the
+#: flash kernel through its shard_map, the a2a dispatch with its all-reduce
+#: over "model" (NCCL on the card, gloo on the CPU)
+TINYLLAMA_ID = "tinyllama-1.1b"
+MESH_SMALL_PROMPTS = (16, 77, 33, 50, 64, 21)
+MESH_SMALL_NEW = 6
+
+
+def local(t):
+    """A DTensor's shard on this rank (on the one-rank host mesh, its whole
+    value, the same storage); anything else as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+@contextlib.contextmanager
+def on_mesh(mesh):
+    """Within the block, ``mesh``'s default rules are active (None: no
+    mesh, nothing changes)."""
+    if mesh is None:
+        yield
+        return
+    from repro_torch.distributed import rules_for_mesh, use_rules
+
+    with use_rules(mesh, rules_for_mesh(mesh)):
+        yield
+
+
+def placed(params, mesh):
+    """``params`` laid out on ``mesh`` by ``tree_shardings`` (DTensors)."""
+    from repro_torch import tree as ttree
+    from repro_torch.distributed import rules_for_mesh
+    from repro_torch.distributed.params import tree_shardings
+    from repro_torch.distributed.sharding import place
+
+    return ttree.tree_map(place, params, tree_shardings(params, mesh, rules_for_mesh(mesh)))
+
+
+def collectives() -> int:
+    """All-reduces the mesh path has launched so far (``all_reduce_sum``)."""
+    from repro_torch.distributed.annotate import all_reduce_sum
+
+    return all_reduce_sum.launches
+
+
+def shown(res: dict) -> dict:
+    """A phase's result without its launch counts and served tokens."""
+    return {k: v for k, v in res.items() if k not in ("launches", "tokens")}
+
+
+@phase("3j serving on the host mesh, on the card (NCCL) and the CPU (gloo) (reduced(), f32)")
+def serving_mesh_small(dev, mesh, host_mesh) -> dict:
+    """tinyllama-1.1b and deepseek-moe-16b at reduced() size in f32, built
+    on the card's host mesh (deepseek with the a2a dispatch; both with
+    flash and tp_comm="manual_bf16", which is the plain path at one rank),
+    their parameters laid out by the rules, served under the rules with
+    every splice checked and admission pinned (as 3h), and with the same
+    weights on the CPU's host mesh: the same tokens.  tinyllama's tokens
+    also equal those of the same weights served with no mesh.  The launch
+    counts and the all-reduces are set to 0 just before the card serves
+    and read just after."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_device
+    from repro_torch.models.api import build_model
+
+    out = {}
+    for arch, dispatch in ((TINYLLAMA_ID, "dense"), (DEEPSEEK_MOE, "a2a")):
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        kw = dict(remat=False, attn_impl="flash", tp_comm="manual_bf16", moe_dispatch=dispatch)
+        card = build_model(cfg, mesh=mesh, device=dev, **kw)
+        params = card.init(torch.Generator(device=dev).manual_seed(1))
+        host_model = build_model(cfg, mesh=host_mesh, device="cpu", **kw)
+        host_params = ttree.tree_map(lambda t: t.cpu(), params)
+        rng = np.random.default_rng(12)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in MESH_SMALL_PROMPTS]
+        serve_kw = dict(slots=3, max_cache=96, max_new=MESH_SMALL_NEW, max_steps=500, pin=True)
+        splices: list = []
+        reset_counts()
+        before = collectives()
+        with on_mesh(mesh), checked_splices(splices):
+            on_card, server, secs = serve(
+                card, placed(params, mesh),
+                make_device(n_instances=2, policy="least_loaded", device=dev), prompts,
+                **serve_kw)
+        sync(dev)
+        launches, nccl = read_counts(SLICE4), collectives() - before
+        check(all(isinstance(t, DTensor) for t in ttree.leaves(server.cache["segments"])),
+              f"{arch}: the served cache is not laid out on the mesh")
+        del server
+        with on_mesh(host_mesh):
+            on_cpu, _, cpu_secs = serve(
+                host_model, placed(host_params, host_mesh),
+                make_device(n_instances=2, policy="least_loaded", device="cpu"), prompts,
+                **serve_kw)
+        tokens = [r.output for r in on_card]
+        check(tokens == [r.output for r in on_cpu],
+              f"{arch}: the card's mesh served other tokens than the CPU's: {tokens} vs "
+              f"{[r.output for r in on_cpu]}")
+        check(len(splices) == len(prompts), f"{arch}: {len(splices)} splices checked")
+        check(dev.type != "cuda" or launches["flash_attention"] == cfg.num_layers * len(prompts),
+              f"{arch}: flash_attention launched {launches['flash_attention']} times, not "
+              f"{cfg.num_layers} layers x {len(prompts)} prefills")
+        res = {"card_s": secs, "cpu_s": cpu_secs, "launches": launches, "all_reduces": nccl,
+               "splices_checked": len(splices)}
+        if dispatch == "a2a":
+            check(nccl > 0, f"{arch}: the a2a dispatch launched no all-reduce on the card")
+        if arch == TINYLLAMA_ID:
+            plain, _, _ = serve(build_model(cfg, device=dev, **kw), params,
+                                make_device(n_instances=2, policy="least_loaded", device=dev),
+                                prompts, **serve_kw)
+            check(tokens == [r.output for r in plain],
+                  f"{arch}: the mesh served other tokens than the card with no mesh")
+            res["same_tokens_as_no_mesh"] = True
+        print(f"{arch} reduced on the host mesh: {len(prompts)} requests in {secs:.3f} s on the "
+              f"card and {cpu_secs:.3f} s on the CPU, the same {sum(map(len, tokens))} tokens; "
+              f"launches on the card {launches}, all-reduces {nccl}")
+        out[arch] = res
+    return out
+
+
+def a2a_vs_dense(mesh):
+    """``serve_full``'s comparison for the MoE model on the host mesh: the
+    2048-token prefill's logits under the a2a dispatch and the dense one
+    with the capacity factor raised to ceil(E / k), so neither drops an
+    assignment (each has its own capacity rule, and which assignments
+    drop would differ), in bf16; then the dense dispatch with the weights
+    made f32 in place (``f32_in_place``): the a2a must stay within
+    BF16_NOISE_FACTOR x that bf16 noise of the dense."""
+    def compare(model, params, batch, dev) -> dict:
+        from repro_torch.models.api import build_model
+
+        moe = model.cfg.moe
+        cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(
+            moe, capacity_factor=float(math.ceil(moe.num_experts / moe.top_k))))
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        S = batch["tokens"].shape[1]
+        logits = {}
+        with on_mesh(mesh):
+            for dispatch in ("a2a", "dense"):
+                m = build_model(cfg, mesh=mesh, moe_dispatch=dispatch, remat=False,
+                                attn_impl="flash", device=dev)
+                _, logits[dispatch], _ = m.prefill(params, batch, S)
+            # the same storage as plain tensors, turned f32 in place
+            p32 = f32_in_place(params)
+            m = build_model(dataclasses.replace(cfg, dtype="float32"), mesh=mesh,
+                            remat=False, attn_impl="flash", device=dev)
+            _, logits["dense f32"], _ = m.prefill(p32, batch, S)
+        for key, lg in logits.items():
+            check(bool(torch.isfinite(lg).all()) and lg.shape == (1, cfg.vocab_size),
+                  f"{key} prefill logits: not finite, or shape {tuple(lg.shape)}")
+        gap = float((logits["a2a"] - logits["dense"]).abs().max())
+        noise = float((logits["dense"] - logits["dense f32"]).abs().max())
+        print(f"{S}-token prefill logits, capacity factor {cfg.moe.capacity_factor} (no drops): "
+              f"a2a vs dense {gap:.3e}; bf16 noise (dense bf16 vs f32) {noise:.3e}")
+        check(gap <= BF16_NOISE_FACTOR * noise,
+              f"a2a and dense prefill logits differ by {gap}, more than {BF16_NOISE_FACTOR} x "
+              f"the bf16 noise {noise}")
+        return {"nodrop_capacity_factor": cfg.moe.capacity_factor, "a2a_vs_dense": gap,
+                "bf16_noise": noise}
+
+    return compare
+
+
+@phase("4l serving tinyllama-1.1b and deepseek-moe-16b at full width and depth on the host "
+       "mesh (bf16, flash)")
+def serving_mesh_full(dev, mesh, tiny_4d: dict) -> dict:
+    """Both models served as 4d serves tinyllama, built on the card's host
+    mesh and serving under its rules: tinyllama must serve 4d's tokens
+    (every spec is replicated at one rank), deepseek-moe-16b serves with
+    the a2a dispatch (``a2a_vs_dense`` after).  Each counts its launches
+    and all-reduces from 0."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, dispatch, compare in ((TINYLLAMA_ID, "dense", None),
+                                    (DEEPSEEK_MOE, "a2a", a2a_vs_dense(mesh))):
+        release(dev)
+        before = collectives()
+        res = serve_full(dev, get_config(arch), mesh=mesh, moe_dispatch=dispatch,
+                         compare=compare)
+        res["all_reduces"] = collectives() - before
+        print(f"{arch} on the host mesh: launches {res['launches']}, all-reduces "
+              f"{res['all_reduces']}")
+        out[arch] = res
+    check(out[TINYLLAMA_ID]["tokens"] == tiny_4d["tokens"],
+          "tinyllama-1.1b on the host mesh served other tokens than phase 4d")
+    check(out[DEEPSEEK_MOE]["all_reduces"] > 0, "deepseek's a2a launched no all-reduce")
     return out
 
 
@@ -3498,12 +3727,12 @@ def crash_after_save(step: int):
 def training_driver(dev, directory: Path = CKPT_DIR / "train", *, reduced=False,
                     layers=TINYLLAMA_LAYERS_KEPT, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> dict:
     """``launch/train.py``'s ``train()`` at tinyllama-1.1b's width, depth
-    cut to ``layers`` (the tree phase 4c checkpoints): 6 steps, a save every
-    2 (every other one full) with kernel CRCs on 2 engines, run whole and
-    run with a crash injected after step 4's save.  The crashed run resumes
-    from step 4 through ``run_with_restarts``; both runs' step-6
-    checkpoints must agree (rtol 1e-5, atol 1e-6), and the manifests' CRCs
-    must be zlib's."""
+    cut to ``layers`` (the tree phase 4c checkpoints), on the host mesh with
+    ZeRO-1 specs (the driver's own): 6 steps, a save every 2 (every other
+    one full) with kernel CRCs on 2 engines, run whole and run with a crash
+    injected after step 4's save.  The crashed run resumes from step 4
+    through ``run_with_restarts``; both runs' step-6 checkpoints must be
+    equal bit for bit, and the manifests' CRCs must be zlib's."""
     import io
 
     from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
@@ -3548,6 +3777,8 @@ def training_driver(dev, directory: Path = CKPT_DIR / "train", *, reduced=False,
         check(torch.allclose(got.float(), want.float(), rtol=1e-5, atol=1e-6),
               f"{key}: the resumed run ends elsewhere than the uninterrupted run")
         worst = max(worst, float((got.float() - want.float()).abs().max()))
+    check(worst == 0.0, f"the resumed run ends {worst} from the uninterrupted run, not bit "
+          f"for bit")
     man = check_manifest(directory / "crash", 6, tree_crcs(trees["crash"]))
     out.update(launches=counts, max_abs_diff=worst, leaves=len(man["leaves"]))
     shutil.rmtree(directory, ignore_errors=True)
@@ -3559,6 +3790,10 @@ def main() -> int:
         return run()
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def run() -> int:
@@ -3687,28 +3922,38 @@ def run() -> int:
     print(f"launches while serving deepseek-moe-16b (phase 4h): {moe_full['launches']}")
     ssm_full = serving_ssm_full(dev)
     print(f"launches while serving mamba2-370m (phase 4i): {ssm_full['launches']}")
+    # slice 12: the host mesh, last (4l serves deepseek-moe-16b again); each
+    # path sets the counts to 0 just before it and reads them just after it
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh, host_mesh = make_host_mesh(), make_host_mesh(device="cpu")
+    mesh_small = serving_mesh_small(dev, mesh, host_mesh)
+    for arch, res in mesh_small.items():
+        print(f"launches serving {arch} reduced on the host mesh (phase 3j): "
+              f"{res['launches']}, all-reduces {res['all_reduces']}")
+    mesh_full = serving_mesh_full(dev, mesh, full)
     print("checkpoint of tinyllama-1.1b (2 of 22 layers), seconds: " + json.dumps(ckpt))
     print("serving, tinyllama-1.1b.reduced() f32 (phase 3d): " + json.dumps(small))
     print("serving, tinyllama-1.1b full width and depth (phase 4d): "
-          + json.dumps({k: v for k, v in full.items() if k != "launches"}))
+          + json.dumps(shown(full)))
     print("serving, gemma3-1b.reduced() at 8 layers f32 (phase 3f): " + json.dumps(gemma_small))
     print("serving, gemma3-1b full width and depth (phase 4f): "
-          + json.dumps({k: v for k, v in gemma.items() if k != "launches"}))
+          + json.dumps(shown(gemma)))
     print("qwen2-vl-2b full width and depth, prefill and decode (phase 4g): " + json.dumps(vlm))
     print("serving the MoE and SSM families reduced, f32 (phase 3h): "
           + json.dumps({a: {k: v for k, v in r.items() if k != "launches"}
                         for a, r in moe_ssm_small.items()}))
     print("serving, deepseek-moe-16b full width and depth (phase 4h): "
-          + json.dumps({k: v for k, v in moe_full.items() if k != "launches"}))
+          + json.dumps(shown(moe_full)))
     print("serving, mamba2-370m full width and depth (phase 4i): "
-          + json.dumps({k: v for k, v in ssm_full.items() if k != "launches"}))
+          + json.dumps(shown(ssm_full)))
     print(f"hymba and seamless reduced, f32, card vs CPU (phase 3i) on {card}: " + json.dumps(
         {a: ({k: v for k, v in r.items() if k != "launches"} if isinstance(r, dict) else r)
          for a, r in hybrid_small.items()}))
     print(f"serving, hymba-1.5b full width and depth (phase 4j) on {card}: "
-          + json.dumps({k: v for k, v in hybrid_full.items() if k != "launches"}))
+          + json.dumps(shown(hybrid_full)))
     print(f"seamless-m4t-medium full width and depth, prefill and decode (phase 4k) on {card}: "
-          + json.dumps({k: v for k, v in encdec.items() if k != "launches"}))
+          + json.dumps(shown(encdec)))
     print("flash_attention at the served models' prefill shapes (phase 5d): "
           + json.dumps(rows["flash_attention"]["prefill_shapes"]))
     print("flash backward against the chunked path (phase 2e): " + json.dumps(bwd))
@@ -3718,6 +3963,14 @@ def run() -> int:
     print("training tinyllama-1.1b full width and depth, eager (phase 4e(i)): "
           + json.dumps(train_full))
     print("launch/train.py at full width, 2 of 22 layers (phase 4e(ii)): " + json.dumps(driver))
+    print(f"serving on the host mesh, reduced, f32 (phase 3j) on {card}: " + json.dumps(
+        {a: shown(r) for a, r in mesh_small.items()}))
+    for arch, res in mesh_full.items():
+        print(f"serving, {arch} full width and depth on the host mesh (phase 4l) on {card}: "
+              + json.dumps(shown(res)))
+    for key in ("ttft_split", "decode_s", "decode_steps", "decode_tok_s"):
+        print(f"deepseek-moe-16b {key}: no mesh, dense (4h) {json.dumps(moe_full[key])}; "
+              f"host mesh, a2a (4l) {json.dumps(mesh_full[DEEPSEEK_MOE][key])}")
     table = kernel_table()
     kernels = []
     for name, (_, replaces) in table.items():

@@ -54,6 +54,8 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.core.device import QueueFull
+from repro_torch.distributed.annotate import full
+from repro_torch.distributed.sharding import place
 
 #: numpy dtype names of the manifest <-> torch dtypes
 _DTYPE_NAMES: Dict[torch.dtype, str] = {
@@ -77,13 +79,21 @@ class _Leaf:
 
 def _host_leaf(leaf) -> _Leaf:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().contiguous().cpu()
+        t = full(leaf.detach()).contiguous().cpu()  # a DTensor's whole value
         name = _DTYPE_NAMES.get(t.dtype)
         if name is None:
             raise TypeError(f"checkpoint: dtype {t.dtype} has no numpy name")
         return _Leaf(t.reshape(-1).view(torch.uint8).numpy().tobytes(), tuple(t.shape), name)
     arr = np.asarray(leaf)
     return _Leaf(arr.tobytes(), tuple(arr.shape), str(arr.dtype))
+
+
+def _place_on_mesh(t: torch.Tensor, sharding) -> torch.Tensor:
+    """A restored CPU tensor on ``sharding``'s mesh, laid out by it."""
+    kind = sharding.mesh.device_type
+    dev = (torch.device(kind, torch.cuda.current_device()) if kind == "cuda"
+           else torch.device(kind))
+    return place(t.to(dev), sharding)
 
 
 def _tensor(data: bytes, dtype: str, shape) -> torch.Tensor:
@@ -351,15 +361,14 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None, *, shardings=None, treedef_like=None):
         """Returns (step, {name: CPU tensor}, or a tree shaped like
-        ``treedef_like``).
+        ``treedef_like``).  With ``shardings`` (a tree of
+        ``distributed.sharding.NamedSharding``, e.g. ``{"params":
+        tree_shardings(...), "opt": opt_state_shardings(...)}``) each leaf
+        it names goes onto its mesh's device as a DTensor laid out by it;
+        the others stay CPU tensors.
 
         Falls back step-by-step past CRC-corrupt saves (replica dir tried
         when the primary's copy of a step is unusable)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore(shardings=...): restore onto a device mesh "
-                "comes with the distributed package (ROADMAP module 12); restore "
-                "without shardings and move the tensors yourself")
         self.wait()
         candidates = self.all_steps()
         if step is not None:
@@ -367,6 +376,10 @@ class CheckpointManager:
         for s in reversed(candidates):
             try:
                 tree = self._restore_step(s)
+                if shardings is not None:
+                    named = dict(_tree.flatten_with_names(shardings))
+                    tree = {k: _place_on_mesh(v, named[k]) if k in named else v
+                            for k, v in tree.items()}
                 if treedef_like is not None:
                     tree = self._unflatten_like(treedef_like, tree)
                 return s, tree

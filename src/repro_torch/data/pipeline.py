@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
+from repro_torch.distributed.sharding import place
 
 
 class SyntheticLMDataset:
@@ -70,15 +71,15 @@ class Prefetcher:
 
     ``device`` is where batches go: None means CUDA (raising where no card
     is present), ``"cpu"`` the CPU, where a batch is the dataset's arrays as
-    tensors.  ``shardings`` needs a mesh, which waits for distributed/: it
-    must be None."""
+    tensors.  ``shardings`` ({batch key: ``distributed.sharding.
+    NamedSharding``}, e.g. ``tree_shardings(batch, mesh, rules)``) lays each
+    leaf it names out on its mesh as a DTensor, as the consumer takes the
+    batch."""
 
     def __init__(self, dataset: SyntheticLMDataset, start_step: int = 0, depth: int = 2,
                  shardings: Optional[Any] = None, dtype=torch.bfloat16, device=None):
-        if shardings is not None:
-            raise NotImplementedError("Prefetcher(shardings=...) needs a mesh: it waits for "
-                                      "distributed/ (ROADMAP.md, queue 1, item 12)")
         self.dataset = dataset
+        self.shardings = shardings
         self.depth = depth
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -128,6 +129,9 @@ class Prefetcher:
             consumer.wait_event(ready)
             for t in batch.values():
                 t.record_stream(consumer)
+        if self.shardings is not None:
+            batch = {k: place(v, self.shardings[k]) if k in self.shardings else v
+                     for k, v in batch.items()}
         return step, batch
 
     def stop(self):

@@ -1,3 +1,7 @@
-"""Distributed training.  Only ``fault`` (heartbeats, straggler detection,
-restarts) is ported; meshes, sharding and collectives wait for ROADMAP.md's
-queue 1, item 12."""
+"""Meshes, sharding rules, annotations and collectives over
+``torch.distributed`` (DTensor on a ``DeviceMesh``), plus ``fault``
+(heartbeats, straggler detection, restarts)."""
+from repro_torch.distributed.annotate import ann, logical_sharding, use_rules
+from repro_torch.distributed.sharding import ShardingRules, rules_for_mesh
+
+__all__ = ["ann", "logical_sharding", "use_rules", "ShardingRules", "rules_for_mesh"]

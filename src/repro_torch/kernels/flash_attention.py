@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.annotate import is_dtensor
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -86,6 +87,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention output [B, Sq, H, hd] of q [B, Sq, H, hd] against k, v
     [B, Skv, KV, hd]; see the module docstring for the function."""
     for name, t in (("q", q), ("k", k), ("v", v)):
+        if is_dtensor(t):  # a wrapper with no storage of its own
+            raise TypeError(f"flash_attention {name}: a DTensor; the kernel takes each "
+                            f"rank's local tensors (models.layers._flash_call's shard_map)")
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"flash_attention {name}: expected a 4-D tensor, got "
                              f"{getattr(t, 'shape', type(t).__name__)}")

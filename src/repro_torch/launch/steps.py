@@ -10,6 +10,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import tree as _tree
+from repro_torch.distributed.sharding import place_like
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.optim.gradients import GradAccumulator, clip_by_global_norm
 
@@ -18,22 +20,28 @@ def make_train_step(model, optimizer: AdamW, micro_steps: int = 1, clip_norm: fl
                     grad_shardings: Optional[Any] = None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
-    ``grad_shardings`` (the reference's ZeRO-2 constraint on the gradient
-    tree) needs a mesh, which waits for distributed/: it must be None."""
-    if grad_shardings is not None:
-        raise NotImplementedError("grad_shardings needs a mesh: it waits for distributed/ "
-                                  "(ROADMAP.md, queue 1, item 12)")
+    ``grad_shardings`` (ZeRO-2: a tree of ``NamedSharding``, normally the
+    optimizer moments', ``opt_state_shardings(...).m``) lays the f32
+    gradient tree out like the moments, so the data-parallel sum is a
+    reduce-scatter and the whole f32 gradient tree is never held on one
+    rank.  Without it the gradients of DTensor parameters take their
+    parameters' layout.  The new parameters and optimizer state keep the
+    old ones' layout (ZeRO-1 keeps the moments sharded across steps)."""
 
     def train_step(params, opt_state: AdamWState, batch):
         loss, metrics, grads = GradAccumulator.accumulate(model.loss, params, batch,
                                                           micro_steps)
+        grads = _tree.tree_map(place_like, grads,
+                               params if grad_shardings is None else grad_shardings)
         if clip_norm > 0:
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
         else:
             gnorm = torch.zeros((), device=loss.device)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        new_params, new_state = optimizer.update(grads, opt_state, params)
+        new_params = _tree.tree_map(place_like, new_params, params)
+        new_state = _tree.tree_map(place_like, new_state, opt_state)
         out_metrics = {"loss": loss, "grad_norm": gnorm, **metrics}
-        return params, opt_state, out_metrics
+        return new_params, new_state, out_metrics
 
     return train_step
 

@@ -8,9 +8,12 @@ Integrates the substrate layers the port has: synthetic data pipeline
 attention, AdamW + grad
 accumulation + clipping, async incremental checkpointing (delta + CRC, the
 CRC kernel with ``--crc-impl kernel``), heartbeat + straggler tracking, and
-restart-from-checkpoint on failure.  One device and no mesh: the JAX
-package's mesh, sharding rules and ZeRO-1 wait for distributed/ (ROADMAP.md,
-queue 1, item 12).  It runs on the card; ``--device cpu`` runs it on the CPU
+restart-from-checkpoint on failure.  It trains on the host mesh
+(``launch.mesh.make_host_mesh``: one rank, ("data", "model") of (1, 1)),
+under the mesh's sharding rules, with the parameters laid out by
+``tree_shardings`` and the AdamW moments by the ZeRO-1 specs
+(``opt_state_shardings``), as DTensors; checkpoints restore onto the same
+layout.  It runs on the card; ``--device cpu`` runs it on the CPU (gloo)
 with the kernels' plain versions.  ``--layers`` cuts the depth.
 """
 from __future__ import annotations
@@ -28,7 +31,11 @@ from repro_torch.configs import get_config
 from repro_torch.core import make_device
 from repro_torch.core.engine import resolve_device
 from repro_torch.data.pipeline import Prefetcher, SyntheticLMDataset
+from repro_torch.distributed.annotate import use_rules
 from repro_torch.distributed.fault import Heartbeat, StragglerDetector, run_with_restarts
+from repro_torch.distributed.params import opt_state_shardings, tree_shardings
+from repro_torch.distributed.sharding import place, rules_for_mesh
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.api import build_model
 from repro_torch.optim.adamw import AdamW, cosine_schedule
@@ -41,9 +48,11 @@ def train(args) -> int:
     if getattr(args, "layers", None):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     dev = resolve_device(getattr(args, "device", None))
+    mesh = make_host_mesh(dev)
+    rules = rules_for_mesh(mesh)
     # flash attention: the kernel in every forward and remat replay (the
     # JAX package's driver keeps the model's default, the chunked path)
-    model = build_model(cfg, remat=not args.no_remat, attn_impl="flash", device=dev)
+    model = build_model(cfg, mesh=mesh, remat=not args.no_remat, attn_impl="flash", device=dev)
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=20, total=max(args.steps, 21)))
     step_fn = make_train_step(model, opt, micro_steps=args.micro_steps)
 
@@ -63,32 +72,37 @@ def train(args) -> int:
     def run(start_step: int) -> int:
         params = model.init(torch.Generator(dev).manual_seed(args.seed))
         opt_state = opt.init(params)
+        shardings = {"params": tree_shardings(params, mesh, rules),
+                     "opt": opt_state_shardings(opt_state, params, mesh, rules)}
+        params = _tree.tree_map(place, params, shardings["params"])
+        opt_state = _tree.tree_map(place, opt_state, shardings["opt"])
         if start_step > 0:
-            s, tree = ckpt.restore(treedef_like={"params": params, "opt": opt_state})
-            tree = _tree.tree_map(lambda t: t.to(dev), tree)
+            s, tree = ckpt.restore(shardings=shardings,
+                                   treedef_like={"params": params, "opt": opt_state})
             params, opt_state = tree["params"], tree["opt"]
             start_step = s
             print(f"[train] resumed from step {s}")
         prefetch = Prefetcher(dataset, start_step=start_step, device=dev)
         losses = []
         try:
-            for i in range(start_step, args.steps):
-                t0 = time.perf_counter()
-                step_i, batch = next(prefetch)
-                params, opt_state, metrics = step_fn(params, opt_state, batch)
-                loss = float(metrics["loss"])
-                losses.append(loss)
-                dt = time.perf_counter() - t0
-                straggler.record(0, dt)
-                hb.beat(i)
-                if (i + 1) % args.ckpt_every == 0:
-                    ckpt.save(i + 1, {"params": params, "opt": opt_state})
-                if (i + 1) % args.log_every == 0:
-                    print(
-                        f"step {i+1:5d} loss {loss:.4f} gnorm "
-                        f"{float(metrics['grad_norm']):.3f} {dt*1e3:.0f}ms",
-                        flush=True,
-                    )
+            with use_rules(mesh, rules):
+                for i in range(start_step, args.steps):
+                    t0 = time.perf_counter()
+                    step_i, batch = next(prefetch)
+                    params, opt_state, metrics = step_fn(params, opt_state, batch)
+                    loss = float(metrics["loss"])
+                    losses.append(loss)
+                    dt = time.perf_counter() - t0
+                    straggler.record(0, dt)
+                    hb.beat(i)
+                    if (i + 1) % args.ckpt_every == 0:
+                        ckpt.save(i + 1, {"params": params, "opt": opt_state})
+                    if (i + 1) % args.log_every == 0:
+                        print(
+                            f"step {i+1:5d} loss {loss:.4f} gnorm "
+                            f"{float(metrics['grad_norm']):.3f} {dt*1e3:.0f}ms",
+                            flush=True,
+                        )
         finally:
             prefetch.stop()
         ckpt.save(args.steps, {"params": params, "opt": opt_state})

@@ -23,14 +23,18 @@ from typing import Any, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.annotate import (
+    _current,
+    ann,
+    axis_index,
+    full,
+    is_dtensor,
+    shard_map,
+)
+from repro_torch.distributed.sharding import P, _as_tuple
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """``what`` is not ported yet; ROADMAP.md's queue 1 lists it."""
-    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1)")
 
 
 @dataclasses.dataclass
@@ -146,6 +150,7 @@ def attn_sub(x: torch.Tensor, p: dict, ctx: Ctx, layer_type: str, mode: str,
         new_cache, k_all, v_all, valid = _decode_cache_update(cfg, ctx, layer_type, cache,
                                                               k[:, 0], v[:, 0])
         o = L.decode_attention(q[:, 0], k_all, v_all, valid)[:, None]
+    o = ann(o, "batch", None, "heads", None)
     out = L.row_parallel_out(o.reshape(B, S, H * hd), p["wo"], ctx.tp_comm)
     return out, new_cache
 
@@ -153,13 +158,18 @@ def attn_sub(x: torch.Tensor, p: dict, ctx: Ctx, layer_type: str, mode: str,
 def _write_prefill_cache(cfg: ModelConfig, ctx: Ctx, layer_type: str, k, v) -> dict:
     B, S = k.shape[0], k.shape[1]
     cache = _init_attn_cache(cfg, B, layer_type, ctx, k.dtype, k.device)
+    # the writes run on whole tensors (DTensor loses a sliced write into a
+    # sharded sequence dim and has no rule for an indexed one); the cache
+    # is then laid out by its specs
+    k, v = full(k), full(v)
     ck, cv = cache["k"], cache["v"]
     if not _is_ring(layer_type, ctx):
         ck[:, :S] = k
         cv[:, :S] = v
-        return cache
-    n_meta, W = ctx.n_meta, ctx.window
+        return {"k": ann(ck, "batch", "seq", "kv_heads", None),
+                "v": ann(cv, "batch", "seq", "kv_heads", None)}
     cpos = cache["pos"]
+    n_meta, W = ctx.n_meta, ctx.window
     if n_meta > 0:
         ck[:, :n_meta] = k[:, :n_meta]
         cv[:, :n_meta] = v[:, :n_meta]
@@ -171,7 +181,8 @@ def _write_prefill_cache(cfg: ModelConfig, ctx: Ctx, layer_type: str, k, v) -> d
     ck[:, slots] = k[:, S - take:]
     cv[:, slots] = v[:, S - take:]
     cpos[:, slots] = pos.to(torch.int32)
-    return cache
+    return {"k": ann(ck, "batch", "seq", "kv_heads", None),
+            "v": ann(cv, "batch", "seq", "kv_heads", None), "pos": ann(cpos, "batch", None)}
 
 
 def _decode_cache_update(cfg, ctx: Ctx, layer_type: str, cache: dict, k1, v1):
@@ -182,28 +193,64 @@ def _decode_cache_update(cfg, ctx: Ctx, layer_type: str, cache: dict, k1, v1):
     is within the window, or a meta token.  In a full cache a position past
     the end (an idle slot keeps counting up) is dropped, as JAX drops an
     out-of-range ``.at[].set``: the row is rewritten with what it holds,
-    with no host sync and no out-of-range index on the card."""
-    ck, cv = cache["k"], cache["v"]
-    B, Sc = ck.shape[0], ck.shape[1]
+    with no host sync and no out-of-range index on the card.
+
+    Under a rules context each rank writes its own shard of the cache (a
+    ``shard_map``): its batch rows, its KV heads and, where the cache's
+    sequence dim is sharded, the slots it holds."""
+    ring = _is_ring(layer_type, ctx)
+    Sc = cache["k"].shape[1]
+    leaves = [cache["k"], cache["v"]] + ([cache["pos"]] if ring else [])
+    rules_ctx = _current()
+    if rules_ctx is None:
+        valid = _cache_write(ctx, ring, Sc, None, k1, v1, ctx.lengths, *leaves)
+    else:
+        if not all(is_dtensor(t) for t in leaves):
+            raise TypeError("under a rules context the cache must be laid out by the rules "
+                            "(a DTensor from prefill or init_cache): each rank writes its "
+                            "own shard in place")
+        mesh, rules = rules_ctx
+        # the new token's k / v, the lengths and the mask follow the cache's
+        # own layout (its KV heads lose "model" where "seq" took it)
+        c_spec = rules.spec(cache["k"].shape, ("batch", "seq", "kv_heads", None))
+        kv_spec, b_spec = P(c_spec[0], c_spec[2], None), P(c_spec[0])
+        row_spec = P(c_spec[0], c_spec[1])
+        in_specs = (kv_spec, kv_spec, b_spec, c_spec, c_spec) + ((row_spec,) if ring else ())
+        valid = shard_map(
+            lambda *a: _cache_write(ctx, ring, Sc, (mesh, _as_tuple(c_spec[1])), *a), mesh,
+            in_specs, row_spec)(k1, v1, ctx.lengths, *leaves)
+    new_cache = {"k": cache["k"], "v": cache["v"]}
+    if ring:
+        new_cache["pos"] = cache["pos"]
+    return new_cache, cache["k"], cache["v"], valid
+
+
+def _cache_write(ctx: Ctx, ring: bool, Sc: int, seq, k1, v1, pos, ck, cv, cpos=None):
+    """The decode write into (a shard of) a cache; returns the validity mask
+    [B, S] of the slots held.  ``seq`` is (mesh, axes) when the tensors are
+    one rank's shards, the sequence dim split over ``axes``."""
+    B, Sl = ck.shape[0], ck.shape[1]
+    off = 0
+    if seq is not None and seq[1]:
+        off = axis_index(seq[0], seq[1]) * Sl
     bidx = torch.arange(B, device=ck.device)
-    pos = ctx.lengths.long()
-    if _is_ring(layer_type, ctx):
+    pos = pos.long()
+    if ring:
         n_meta, W = ctx.n_meta, ctx.window
-        slot = torch.where(pos < n_meta, pos, n_meta + (pos - n_meta) % W)
-        cpos = cache["pos"]
-        ck[bidx, slot] = k1.to(ck.dtype)
-        cv[bidx, slot] = v1.to(cv.dtype)
-        cpos[bidx, slot] = pos.to(cpos.dtype)
+        slot = torch.where(pos < n_meta, pos, n_meta + (pos - n_meta) % W) - off
+    else:
+        slot = torch.where(pos < Sc, pos, torch.full_like(pos, -1)) - off
+    # a write that falls outside the slots held rewrites a row with what it holds
+    inside = ((slot >= 0) & (slot < Sl))
+    at = slot.clamp(0, Sl - 1)
+    ck[bidx, at] = torch.where(inside[:, None, None], k1.to(ck.dtype), ck[bidx, at])
+    cv[bidx, at] = torch.where(inside[:, None, None], v1.to(cv.dtype), cv[bidx, at])
+    if ring:
+        cpos[bidx, at] = torch.where(inside, pos.to(cpos.dtype), cpos[bidx, at])
         in_window = (pos[:, None] - cpos) < W
         is_meta = (cpos >= 0) & (cpos < n_meta)
-        valid = (cpos >= 0) & (cpos <= pos[:, None]) & (in_window | is_meta)
-        return {"k": ck, "v": cv, "pos": cpos}, ck, cv, valid
-    inside = (pos < Sc)[:, None, None]
-    at = pos.clamp(0, Sc - 1)
-    ck[bidx, at] = torch.where(inside, k1.to(ck.dtype), ck[bidx, at])
-    cv[bidx, at] = torch.where(inside, v1.to(cv.dtype), cv[bidx, at])
-    valid = torch.arange(Sc, device=ck.device)[None] <= pos[:, None]
-    return {"k": ck, "v": cv}, ck, cv, valid
+        return (cpos >= 0) & (cpos <= pos[:, None]) & (in_window | is_meta)
+    return (off + torch.arange(Sl, device=ck.device))[None] <= pos[:, None]
 
 
 # --------------------------------------------------------------------------- full blocks
@@ -223,6 +270,7 @@ def apply_dense(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
     x = x + h
     x = x + L.gated_mlp(L.rms_norm(x, p["ln2"], ctx.cfg.norm_eps), p["mlp"], ctx.cfg.act,
                         tp_comm=ctx.tp_comm)
+    x = ann(x, "batch", None, "embed")
     return x, torch.zeros((), dtype=torch.float32, device=x.device), new_cache
 
 
@@ -243,7 +291,7 @@ def apply_moe(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
     y, aux = moe_lib.moe_block(L.rms_norm(x, p["ln2"], ctx.cfg.norm_eps), p["moe"],
                                ctx.cfg.moe, ctx.cfg.act, dispatch=ctx.moe_dispatch,
                                mesh=ctx.mesh)
-    return x + y, aux, new_cache
+    return ann(x + y, "batch", None, "embed"), aux, new_cache
 
 
 def init_ssm_layer(gen, cfg: ModelConfig, dtype, n: Stack = None) -> dict:
@@ -329,6 +377,7 @@ def apply_hybrid(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
     x = x + h
     x = x + L.gated_mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg.act,
                         tp_comm=ctx.tp_comm)
+    x = ann(x, "batch", None, "embed")
     return x, torch.zeros((), dtype=torch.float32, device=x.device), new_cache
 
 

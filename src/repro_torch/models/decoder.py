@@ -41,8 +41,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint as _ckpt
 
+from repro_torch import tree as ttree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
+from repro_torch.distributed.annotate import _current, ann, full, replicate
+from repro_torch.distributed.params import tree_shardings
+from repro_torch.distributed.sharding import place
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
@@ -167,14 +171,17 @@ class DecoderModel:
     checkpoints each layer of the training forward (each group of
     ``remat_group`` layers of a dense scan segment when that divides its
     depth), as the reference's ``jax.checkpoint``; ``moe_dispatch`` is the
-    reference's: without a mesh (the port has none yet) "a2a" takes the
-    dense dispatch, as it does there."""
+    reference's: "a2a" is the expert-parallel dispatch on ``mesh`` (a
+    ``DeviceMesh`` with a "model" axis) and the dense one without.
+
+    Under ``repro_torch.distributed.use_rules`` activations and caches are
+    DTensors laid out by the rules (parameters may be placed with
+    ``distributed.params.tree_shardings``, or left whole); the logits and
+    losses come back whole, as tensors, on every rank."""
 
     def __init__(self, cfg: ModelConfig, mesh=None, moe_dispatch: str = "dense",
                  remat: bool = True, attn_impl: str = "chunked", tp_comm: str = "auto",
                  remat_group: int = 1, device=None):
-        if mesh is not None:
-            raise B.not_ported("a mesh (distributed/)")
         if attn_impl not in ("chunked", "flash"):
             raise ValueError(f"attn_impl must be 'chunked' or 'flash', got {attn_impl!r}")
         self.cfg = cfg
@@ -267,7 +274,7 @@ class DecoderModel:
         return x
 
     def _embed(self, params, tokens, batch) -> torch.Tensor:
-        x = self._embed_tokens(params, tokens)
+        x = full(self._embed_tokens(params, tokens))
         if self.cfg.vlm is not None and "patch_embeds" in batch:
             # the patch embeddings replace the tokens from position 1 (JAX's
             # dynamic_update_slice, which moves the start back to fit)
@@ -275,9 +282,9 @@ class DecoderModel:
             at = max(0, min(1, x.shape[1] - pe.shape[1]))
             x = torch.cat([x[:, :at], pe, x[:, at + pe.shape[1]:]], dim=1)
         if self.n_meta:
-            meta = params["meta_tokens"][None].expand(x.shape[0], -1, -1).to(self.dtype)
+            meta = full(params["meta_tokens"])[None].expand(x.shape[0], -1, -1).to(self.dtype)
             x = torch.cat([meta, x], dim=1)
-        return x
+        return ann(x, "batch", None, "embed")
 
     def _unembed_w(self, params):
         if self.cfg.tie_embeddings:
@@ -344,7 +351,8 @@ class DecoderModel:
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
                 if mask is None else mask.to(torch.float32).clone())
         mask[:, -1] = 0.0
-        ce = _chunked_ce(x, *self._unembed_w(params), labels, mask)
+        ce = full(_chunked_ce(x, *self._unembed_w(params), labels, mask))
+        aux = full(aux)
         loss = ce + aux
         return loss, {"ce": ce, "aux": aux}
 
@@ -362,7 +370,7 @@ class DecoderModel:
                              positions_thw=batch.get("positions_thw"))
         x, _, cache = self._run_stack(params, self._embed(params, tokens, batch), ctx,
                                       "prefill")
-        last_logits = L.unembed(x[:, -1], *self._unembed_w(params))
+        last_logits = full(L.unembed(x[:, -1], *self._unembed_w(params)))
         lengths = torch.full((bsz,), total, dtype=torch.int32, device=tokens.device)
         cache["lengths"] = lengths
         return cache, last_logits, lengths
@@ -382,8 +390,9 @@ class DecoderModel:
             else:  # one unit's layer types, n times: one layer or a period
                 unit = seg.layer_types if seg.unit.endswith("period") else seg.layer_types[:1]
                 segs.append(_seg_cache(seg, [layer(lt) for lt in unit * seg.n]))
-        return {"segments": segs,
-                "lengths": torch.zeros((bsz,), dtype=torch.int32, device=self.device)}
+        return place_cache({"segments": segs,
+                            "lengths": torch.zeros((bsz,), dtype=torch.int32,
+                                                   device=self.device)})
 
     def decode_step(self, params, cache, tokens, batch=None):
         """tokens [B, 1]; cache from prefill / init_cache, updated in place.
@@ -396,9 +405,9 @@ class DecoderModel:
         if self.cfg.vlm is not None:
             positions_thw = positions[None].expand(3, tokens.shape[0], 1)
         ctx = self._make_ctx(positions, lengths=lengths, positions_thw=positions_thw)
-        x, _, new_cache = self._run_stack(params, self._embed_tokens(params, tokens), ctx,
-                                          "decode", cache)
-        logits = L.unembed(x[:, 0], *self._unembed_w(params))
+        x = ann(full(self._embed_tokens(params, tokens)), "batch", None, "embed")
+        x, _, new_cache = self._run_stack(params, x, ctx, "decode", cache)
+        logits = full(L.unembed(x[:, 0], *self._unembed_w(params)))
         new_cache["lengths"] = lengths + 1
         return logits, new_cache
 
@@ -419,7 +428,7 @@ def _chunked_ce(x, w, transpose, labels, mask, target_tokens: int = 16384):
     def body(xb, lb, mb):
         logits = L.unembed(xb, w, transpose)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(logits, lb.long()[..., None], dim=-1)[..., 0]
+        gold = torch.take_along_dim(replicate(logits), lb.long()[..., None], dim=-1)[..., 0]
         return ((logz - gold) * mb).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -428,6 +437,15 @@ def _chunked_ce(x, w, transpose, labels, mask, target_tokens: int = 16384):
         total = total + _ckpt.checkpoint(body, x[:, sl], labels[:, sl], mask[:, sl],
                                          use_reentrant=False)
     return total / torch.clamp_min(mask.sum(), 1.0)
+
+
+def place_cache(cache):
+    """Under a rules context, every cache leaf laid out by its spec
+    (``tree_shardings``); otherwise the cache as it is."""
+    ctx = _current()
+    if ctx is None:
+        return cache
+    return ttree.tree_map(place, cache, tree_shardings(cache, *ctx))
 
 
 def _to(tree, device):

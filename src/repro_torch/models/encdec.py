@@ -29,9 +29,10 @@ import torch.utils.checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
+from repro_torch.distributed.annotate import ann, full
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.models.decoder import _chunked_ce, _layer, _stack, _to
+from repro_torch.models.decoder import _chunked_ce, _layer, _stack, _to, place_cache
 
 
 def _init_cross_layer(gen, cfg: ModelConfig, dtype, n: B.Stack = None) -> dict:
@@ -52,7 +53,7 @@ def _cross_attend(x, p, cfg: ModelConfig, ck, cv):
     """q from x against precomputed cross K / V (no rope, not causal)."""
     bsz, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(bsz, S, H, hd)
+    q = ann((x @ p["wq"]).reshape(bsz, S, H, hd), "batch", None, "heads", None)
     o = L.attention(q, ck, cv, causal=False)
     return o.reshape(bsz, S, H * hd) @ p["wo"]
 
@@ -62,19 +63,18 @@ def _cross_kv(enc_out, p, cfg: ModelConfig):
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     ck = (enc_out @ p["wk"]).reshape(bsz, Skv, KV, hd)
     cv = (enc_out @ p["wv"]).reshape(bsz, Skv, KV, hd)
-    return ck, cv
+    return ann(ck, "batch", None, "kv_heads", None), ann(cv, "batch", None, "kv_heads", None)
 
 
 class EncDecModel:
     """``device`` is where the parameters and caches live: None means CUDA
     (raising where no card is present), ``"cpu"`` the CPU.  ``remat``
-    checkpoints each encoder and decoder layer of the training forward."""
+    checkpoints each encoder and decoder layer of the training forward.
+    ``mesh`` and a rules context work as in ``DecoderModel``."""
 
     def __init__(self, cfg: ModelConfig, mesh=None, remat: bool = True, device=None, **_):
         if cfg.encoder is None:
             raise ValueError(f"{cfg.name} has no encoder")
-        if mesh is not None:
-            raise B.not_ported("a mesh (distributed/)")
         self.cfg = cfg
         self.mesh = mesh
         self.remat = remat
@@ -103,22 +103,22 @@ class EncDecModel:
     def _enc_ctx(self, src_len: int, bsz: int) -> B.Ctx:
         pos = torch.arange(src_len, device=self.device)[None].expand(bsz, src_len)
         cos, sin = L.rope_cos_sin(pos, self.cfg.head_dim, self.cfg.rope_theta)
-        return B.Ctx(cfg=self.cfg, cos_local=cos, sin_local=sin, causal=False,
+        return B.Ctx(cfg=self.cfg, mesh=self.mesh, cos_local=cos, sin_local=sin, causal=False,
                      remat=self.remat)
 
     def _dec_ctx(self, positions, lengths=None, max_cache_len: int = 0) -> B.Ctx:
         cos, sin = L.rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
-        return B.Ctx(cfg=self.cfg, cos_local=cos, sin_local=sin, lengths=lengths,
-                     max_cache_len=max_cache_len, remat=self.remat)
+        return B.Ctx(cfg=self.cfg, mesh=self.mesh, cos_local=cos, sin_local=sin,
+                     lengths=lengths, max_cache_len=max_cache_len, remat=self.remat)
 
     def _embed(self, params, tokens) -> torch.Tensor:
-        return params["embed"][tokens.long()].to(self.dtype)
+        return ann(full(params["embed"][tokens.long()].to(self.dtype)), "batch", None, "embed")
 
     # ------------------------------------------------------------------ encoder
     def encode(self, params, frame_embeds) -> torch.Tensor:
         """frame_embeds [B, source_len, D] -> the encoder's output [B,
         source_len, D]: bidirectional dense layers, then ``enc_norm``."""
-        x = frame_embeds.to(self.dtype)
+        x = ann(frame_embeds.to(self.dtype), "batch", None, "embed")
         ctx = self._enc_ctx(x.shape[1], x.shape[0])
 
         def body(xx, p_l):
@@ -143,7 +143,8 @@ class EncDecModel:
             return xx + h, nc
 
         def mlp(xx, p_l):
-            return xx + L.gated_mlp(L.rms_norm(xx, p_l["ln2"], eps), p_l["mlp"], cfg.act)
+            xx = xx + L.gated_mlp(L.rms_norm(xx, p_l["ln2"], eps), p_l["mlp"], cfg.act)
+            return ann(xx, "batch", None, "embed")
 
         if mode == "train":
 
@@ -205,7 +206,7 @@ class EncDecModel:
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
                 if mask is None else mask.to(torch.float32).clone())
         mask[:, -1] = 0.0
-        ce = _chunked_ce(x, params["unembed"], False, labels, mask)
+        ce = full(_chunked_ce(x, params["unembed"], False, labels, mask))
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
     # ------------------------------------------------------------------ prefill / decode
@@ -220,7 +221,7 @@ class EncDecModel:
         ctx = self._dec_ctx(positions, max_cache_len=max_cache_len)
         x, layers = self._dec_stack(params, self._embed(params, tokens), enc_out, ctx, "prefill")
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = L.unembed(x[:, -1], params["unembed"], False)
+        logits = full(L.unembed(x[:, -1], params["unembed"], False))
         lengths = torch.full((bsz,), S, dtype=torch.int32, device=tokens.device)
         return {"layers": layers, "lengths": lengths}, logits, lengths
 
@@ -234,8 +235,9 @@ class EncDecModel:
                     "cross_k": torch.zeros(cross, dtype=self.dtype, device=self.device),
                     "cross_v": torch.zeros(cross, dtype=self.dtype, device=self.device)}
 
-        return {"layers": _stack([layer() for _ in range(cfg.num_layers)]),
-                "lengths": torch.zeros((bsz,), dtype=torch.int32, device=self.device)}
+        return place_cache({"layers": _stack([layer() for _ in range(cfg.num_layers)]),
+                            "lengths": torch.zeros((bsz,), dtype=torch.int32,
+                                                   device=self.device)})
 
     def decode_step(self, params, cache, tokens, batch=None):
         """tokens [B, 1]; cache from prefill / init_cache, its self-attention
@@ -247,5 +249,5 @@ class EncDecModel:
         x, layers = self._dec_stack(params, self._embed(params, tokens), None, ctx, "decode",
                                     cache["layers"])
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = L.unembed(x[:, 0], params["unembed"], False)
+        logits = full(L.unembed(x[:, 0], params["unembed"], False))
         return logits, {"layers": layers, "lengths": lengths + 1}

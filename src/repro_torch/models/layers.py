@@ -14,9 +14,12 @@ Attention comes in three forms:
 * ``decode_attention``  -- one new token against a KV cache with a per-
                            sequence validity mask.
 
-Sharding annotations (the reference's ``ann``) are the identity without a
-mesh and are dropped; the tensor-parallel ``shard_map`` paths raise until
-``distributed/`` is ported.
+Under ``repro_torch.distributed.use_rules`` the tensors are DTensors on the
+rules' mesh: ``ann`` lays out q, k and v as the reference does, the flash
+kernel runs on each rank's (batch x head) shard and ``tp_comm=
+"manual_bf16"`` runs the tensor-parallel MLP and attention output as
+``shard_map``s (DTensor's ``local_map``) with a bf16 all-reduce.  Without a
+context ``ann`` is the identity and every path is the plain one.
 """
 from __future__ import annotations
 
@@ -26,11 +29,19 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.annotate import (
+    _current,
+    all_reduce_sum,
+    ann,
+    axis_index,
+    full,
+    replicate,
+    shard_map,
+)
+from repro_torch.distributed.sharding import P, _as_tuple
 from repro_torch.kernels import flash_attention as _flash
 
 NEG_INF = _flash.NEG_INF
-_NOT_PORTED_TP = ("tp_comm='manual_bf16' (shard_map tensor parallelism) is not ported: it "
-                  "waits for distributed/ (ROADMAP.md, queue 1, item 12)")
 
 
 # --------------------------------------------------------------------------- norms
@@ -92,18 +103,65 @@ def _act(name: str):
 
 
 def gated_mlp(x: torch.Tensor, p: dict, act: str = "silu", tp_comm: str = "auto") -> torch.Tensor:
-    """SwiGLU / GeGLU MLP.  p = {w1 [D, F], w3 [D, F], w2 [F, D]}."""
+    """SwiGLU / GeGLU MLP.  p = {w1 [D, F], w3 [D, F], w2 [F, D]}.
+
+    tp_comm="manual_bf16": the whole tensor-parallel block in a
+    ``shard_map`` with the row-parallel partial sums cast to the model's
+    dtype before the all-reduce (otherwise the f32 products would go on
+    the wire, twice the bytes)."""
+    fn = _act(act)
     if tp_comm == "manual_bf16":
-        raise NotImplementedError(_NOT_PORTED_TP)
-    h = _act(act)(x @ p["w1"]) * (x @ p["w3"])
+        out = _tp_block_manual(x, p, fn)
+        if out is not None:
+            return out
+    h = fn(x @ p["w1"]) * (x @ p["w3"])
+    h = ann(h, "batch", None, "mlp")
     return h @ p["w2"]
 
 
+def _tp_block_manual(x, p, fn):
+    """Megatron-style column + row parallel MLP with a bf16 wire; None when
+    no rules context is active or the FF dim isn't sharded."""
+    ctx = _current()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    w1_spec = rules.spec(p["w1"].shape, (None, "mlp"))
+    if w1_spec[1] is None:
+        return None
+    x_spec = rules.spec(x.shape, ("batch", None, None))
+    axis = w1_spec[1]
+
+    def local(x_l, w1_l, w3_l, w2_l):
+        h = fn(x_l @ w1_l) * (x_l @ w3_l)
+        part = (h @ w2_l).to(x_l.dtype)  # cast BEFORE the wire
+        return all_reduce_sum(part, mesh, axis)
+
+    return shard_map(local, mesh, (x_spec, w1_spec, w1_spec, P(axis, None)), x_spec,
+                     reduces=_as_tuple(axis))(x, p["w1"], p["w3"], p["w2"])
+
+
 def row_parallel_out(o_flat: torch.Tensor, wo: torch.Tensor, tp_comm: str = "auto") -> torch.Tensor:
-    """Attention output projection [B, S, H * hd] @ [H * hd, D]."""
-    if tp_comm == "manual_bf16":
-        raise NotImplementedError(_NOT_PORTED_TP)
-    return o_flat @ wo
+    """Attention output projection [B, S, H * hd] @ [H * hd, D], row-parallel
+    with a bf16-wire all-reduce when tp_comm="manual_bf16" (the same
+    rationale as gated_mlp)."""
+    ctx = _current()
+    if tp_comm != "manual_bf16" or ctx is None:
+        return o_flat @ wo
+    mesh, rules = ctx
+    wo_spec = rules.spec(wo.shape, ("qkv_flat", None))
+    if wo_spec[0] is None:
+        return o_flat @ wo
+    o_spec = rules.spec(o_flat.shape, ("batch", None, "qkv_flat"))
+    if o_spec[2] is None:
+        return o_flat @ wo
+    axis = wo_spec[0]
+
+    def local(o_l, w_l):
+        return all_reduce_sum((o_l @ w_l).to(o_l.dtype), mesh, axis)
+
+    return shard_map(local, mesh, (o_spec, wo_spec), P(o_spec[0], None, None),
+                     reduces=_as_tuple(axis))(o_flat, wo)
 
 
 # --------------------------------------------------------------------------- attention
@@ -200,12 +258,57 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 
 # --------------------------------------------------------------------------- flash wrapper
-def _flash_call(q, k, v, causal, window, n_meta):
-    """The flash kernel (CUDA tensors) or its plain version (CPU tensors).
-    The reference's mesh branch (shard_map over the local batch x head
-    shard) needs a mesh, which the port cannot build until distributed/ is
-    ported (``DecoderModel(mesh=...)`` raises)."""
-    return _flash.flash_attention(q, k, v, causal=causal, window=window, n_meta=n_meta)
+def _kv_heads_of(h0: int, n_local: int, H: int, KV: int, device) -> torch.Tensor:
+    """The KV heads that query heads h0 .. h0 + n_local - 1 read, one per
+    group of local query heads: the heads of whole groups where n_local
+    is a multiple of the group size, the one head all of them share where
+    it divides the group, and one head for each query head otherwise."""
+    G = H // KV
+    idx = torch.div(torch.arange(h0, h0 + n_local, device=device), G, rounding_mode="floor")
+    if n_local % G == 0:
+        return idx[::G]
+    if G % n_local == 0:
+        return idx[:1]
+    return idx
+
+
+def _flash_call(q, k, v, causal, window, n_meta, q_offset=0):
+    """The flash kernel forward with the reference backward
+    (``_FlashRefBwd``), run per rank on its local (batch x head) shard when
+    a rules context is active.
+
+    KV heads sharded like the query heads: each rank's KV heads are the
+    ones its query heads read.  KV heads replicated while the query heads
+    are sharded: each rank takes the KV heads its GLOBAL query heads read
+    (``_kv_heads_of``).  (The reference passes the replicated KV through,
+    and its kernel then pairs local query head j with KV head j // (H_local
+    / KV), the wrong one; where H_local < KV that group size is 0.)  Any
+    other split: the direct call on the whole tensors, as the reference
+    does."""
+    def run(q, k, v):
+        return _FlashRefBwd.apply(q, k, v, causal, window, n_meta, q_offset)
+
+    ctx = _current()
+    if ctx is None:
+        return run(q, k, v)
+    mesh, rules = ctx
+    q_spec = rules.spec(q.shape, ("batch", None, "heads", None))
+    kv_spec = rules.spec(k.shape, ("batch", None, "kv_heads", None))
+    h_shard = rules.axis_size(q_spec[2])
+    kv_shard = rules.axis_size(kv_spec[2])
+    if kv_shard not in (1, h_shard):
+        return run(full(q), full(k), full(v))
+    if kv_shard == h_shard:
+        return shard_map(run, mesh, (q_spec, kv_spec, kv_spec), q_spec)(q, k, v)
+    H, KV = q.shape[2], k.shape[2]
+
+    def local(q_l, k_l, v_l):
+        r = axis_index(mesh, q_spec[2])
+        n_local = q_l.shape[2]
+        idx = _kv_heads_of(r * n_local, n_local, H, KV, k_l.device)
+        return run(q_l, k_l.index_select(2, idx), v_l.index_select(2, idx))
+
+    return shard_map(local, mesh, (q_spec, kv_spec, kv_spec), q_spec)(q, k, v)
 
 
 class _FlashRefBwd(torch.autograd.Function):
@@ -219,7 +322,7 @@ class _FlashRefBwd(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, causal, window, n_meta, q_offset):
-        return _flash_call(q, k, v, causal, window, n_meta)
+        return _flash.flash_attention(q, k, v, causal=causal, window=window, n_meta=n_meta)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -243,7 +346,7 @@ def attention_trainable(q, k, v, *, causal: bool = True, window: int = 0, n_meta
     """Attention with a selectable implementation: "chunked" (plain PyTorch,
     the baseline) or "flash" (the CUDA kernel forward, reference backward)."""
     if impl == "flash":
-        return _FlashRefBwd.apply(q, k, v, causal, window, n_meta, q_offset)
+        return _flash_call(q, k, v, causal, window, n_meta, q_offset)
     return attention(q, k, v, causal=causal, window=window, n_meta=n_meta, q_offset=q_offset)
 
 
@@ -259,6 +362,9 @@ def project_qkv(x: torch.Tensor, p: dict, cfg, *, qk_norm_p: Optional[dict] = No
     if qk_norm_p is not None:
         q = rms_norm(q, qk_norm_p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, qk_norm_p["k_norm"], cfg.norm_eps)
+    q = ann(q, "batch", None, "heads", None)
+    k = ann(k, "batch", None, "kv_heads", None)
+    v = ann(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -269,8 +375,10 @@ def unembed(x: torch.Tensor, table: torch.Tensor, transpose: bool) -> torch.Tens
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean CE over masked positions.  logits [B, S, V] f32, labels [B, S] int."""
+    """Mean CE over masked positions.  logits [B, S, V] f32, labels [B, S] int.
+    The gold logit is gathered from replicated logits (DTensor's gather
+    along a vocab-sharded dim fails)."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    gold = torch.take_along_dim(replicate(logits), labels.long()[..., None], dim=-1)[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -18,10 +18,14 @@ because which assignments a full expert drops depends on it:
   atomics, whose order (and so whose bf16 sum) changes from run to run on
   the card.
 
-The expert-parallel all-to-all dispatch (``dispatch="a2a"``) needs a mesh,
-which the port cannot build until ``distributed/`` is ported
-(``DecoderModel(mesh=...)`` raises); without one the reference takes the
-dense path, and so does the port.
+The expert-parallel dispatch (``dispatch="a2a"``) runs on a mesh with a
+"model" axis: a ``shard_map`` (DTensor's ``local_map``) in which each model
+rank buckets its own expert group, runs those experts, scatters the
+partial outputs back and one all-reduce over "model" combines them.
+Without a mesh "a2a" is the dense dispatch, as in the reference.  Under a
+rules context the dense dispatch plans and scatters on whole tensors on
+every rank (DTensor has no sharding rule for its data-dependent scatter),
+with the experts' products on their expert shards.
 """
 from __future__ import annotations
 
@@ -31,6 +35,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed.annotate import (
+    _current,
+    all_reduce_sum,
+    ann,
+    full,
+    is_dtensor,
+    shard_map,
+)
+from repro_torch.distributed.sharding import P, _as_tuple
 from repro_torch.models.layers import _act
 
 
@@ -74,6 +87,7 @@ def _moe_dense(xt: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor, p: di
     the results come back weighted by the router.  A kept assignment has a
     bucket row of its own, so the scatter writes each row once; the dropped
     ones write a spare row past the buckets, which is cut off."""
+    xt, weights, idx = full(xt), full(weights), full(idx)
     T, D = xt.shape
     E, k = cfg.num_experts, cfg.top_k
     flat_e, pos_c, keep, src_tok, cap = dispatch_plan(idx, cfg, T)
@@ -81,19 +95,20 @@ def _moe_dense(xt: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor, p: di
     row = torch.where(keep, flat_e * cap + pos_c, torch.full_like(pos_c, spare))
     buckets = torch.zeros((spare + 1, D), dtype=xt.dtype, device=xt.device)
     buckets[row] = xt[src_tok]
-    buckets = buckets[:spare].view(E, cap, D)
+    buckets = ann(buckets[:spare].view(E, cap, D), "expert", None, None)
 
     fn = _act(act)
     hh = fn(torch.bmm(buckets, p["w1"])) * torch.bmm(buckets, p["w3"])
-    out = torch.bmm(hh, p["w2"])  # [E, cap, D]
+    hh = ann(hh, "expert", None, "mlp")
+    out = ann(torch.bmm(hh, p["w2"]), "expert", None, None)  # [E, cap, D]
 
-    gathered = out.reshape(spare, D)[flat_e * cap + pos_c]  # [T*k, D]
+    gathered = full(out).reshape(spare, D)[flat_e * cap + pos_c]  # [T*k, D]
     gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
     terms = (gathered * weights.reshape(-1, 1).to(gathered.dtype)).view(T, k, D)
     y = torch.zeros_like(xt)
     for j in range(k):  # the reference's scatter-add order, in the model's dtype
         y = y + terms[:, j]
-    return y
+    return ann(y, "batch", None)
 
 
 def moe_block(x: torch.Tensor, p: dict, cfg: MoEConfig, act: str = "silu",
@@ -102,17 +117,115 @@ def moe_block(x: torch.Tensor, p: dict, cfg: MoEConfig, act: str = "silu",
 
     p = {router [D, E] f32, w1 / w3 [E, D, F], w2 [E, F, D], and with
     shared experts shared_w1 / shared_w3 [D, F * ns], shared_w2 [F * ns, D]}.
-    ``dispatch`` and ``mesh`` keep the reference's signature: without a
-    mesh both dispatches are the dense one."""
+    ``dispatch="a2a"`` with a mesh that has a "model" axis is the
+    expert-parallel dispatch; anything else the dense one."""
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
     weights, idx, aux = router_topk(xt, p["router"], cfg)
-    y = _moe_dense(xt, weights, idx, p, cfg, act)
+    if dispatch == "a2a" and mesh is not None and "model" in mesh.mesh_dim_names:
+        y = _moe_a2a(xt, weights, idx, p, cfg, act, mesh)
+    else:
+        y = _moe_dense(xt, weights, idx, p, cfg, act)
     if cfg.num_shared_experts > 0:
         fn = _act(act)
         sh = fn(xt @ p["shared_w1"]) * (xt @ p["shared_w3"])
+        sh = ann(sh, "batch", "mlp")
         y = y + sh @ p["shared_w2"]
+    if is_dtensor(y) and B % _row_shards(y):
+        # tokens sharded more ways than the batch divides: DTensor cannot
+        # split them back into [B, S] in place
+        y = ann(y, None, None)
     return y.reshape(B, S, D), aux
+
+
+def _row_shards(t) -> int:
+    """How many ways a DTensor's dim 0 is split."""
+    from torch.distributed.tensor import Shard
+
+    n = 1
+    for size, pl in zip(t.device_mesh.shape, t.placements):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            n *= size
+    return n
+
+
+def _moe_a2a(xt, weights, idx, p, cfg: MoEConfig, act, mesh) -> torch.Tensor:
+    """Expert-parallel dispatch in a ``shard_map``.
+
+    Tokens are sharded over the data axes and REPLICATED over "model";
+    experts are sharded over "model".  Each model rank therefore already
+    holds every token of its data shard: it buckets them for its LOCAL
+    expert group only, with the reference's capacity ``int(cf * k *
+    t_local / E) + 1`` (not the dense dispatch's), runs those experts,
+    scatters the partial outputs back to token positions, and one
+    activation-sized all-reduce over "model" combines the groups.  Where
+    the expert FF dim is sharded too (over ``ff_axes``), its partial sums
+    are all-reduced first; if those axes also shard the tokens, the tokens
+    are replicated instead (partial sums of different tokens must not
+    mix)."""
+    names = list(mesh.mesh_dim_names)
+    E, k = cfg.num_experts, cfg.top_k
+    e_local = E // mesh.size(names.index("model"))
+
+    # the rules' layout of every weight dim (no hidden gathers); without
+    # rules, tokens over the data axes and experts over "model"
+    ctx = _current()
+    if ctx is not None:
+        rules = ctx[1]
+        tok_spec = rules.spec(xt.shape, ("batch", None))
+        w1_spec = rules.spec(p["w1"].shape[-3:], ("expert", "fsdp", "expert_ff"))
+        w2_spec = rules.spec(p["w2"].shape[-3:], ("expert", "expert_ff", "fsdp"))
+        # the local products contract the whole d_model: an FSDP shard on D
+        # is gathered at the shard_map's boundary
+        w1_spec = P(w1_spec[0], None, w1_spec[2])
+        w2_spec = P(w2_spec[0], w2_spec[1], None)
+    else:
+        data_axes = tuple(a for a in ("pod", "data") if a in names)
+        tok_spec = P(data_axes if data_axes else None, None)
+        w1_spec = w2_spec = P("model", None, None)
+
+    tok_axes = _as_tuple(tok_spec[0])
+    ff_axes = _as_tuple(w1_spec[2])
+    if set(ff_axes) & set(tok_axes):
+        tok_spec, tok_axes = P(None, None), ()
+    n_tok_shards = 1
+    for a in tok_axes:
+        n_tok_shards *= mesh.size(names.index(a))
+    t_local = max(xt.shape[0] // n_tok_shards, 1)
+    cap = max(int(cfg.capacity_factor * cfg.top_k * t_local / E) + 1, 1)
+    fn = _act(act)
+
+    def local_fn(xt_l, weights_l, idx_l, w1, w3, w2):
+        # xt_l [t_local, D]; w1 / w3 [e_local, D, F_local]; w2 [e_local, F_local, D]
+        m = mesh.get_local_rank("model")
+        tl, D = xt_l.shape
+        flat_e = idx_l.reshape(-1)  # [tl * k] global expert ids
+        onehot = F.one_hot(flat_e, E)
+        pos = torch.gather(torch.cumsum(onehot, dim=0), 1, flat_e[:, None])[:, 0] - 1
+        local_e = flat_e - m * e_local
+        mine = (local_e >= 0) & (local_e < e_local) & (pos < cap)
+        row = local_e.clamp(0, e_local - 1) * cap + torch.where(mine, pos, torch.zeros_like(pos))
+        spare = e_local * cap
+        src_tok = torch.arange(tl, device=xt_l.device).repeat_interleave(k)
+        buckets = xt_l.new_zeros((spare + 1, D))
+        buckets[torch.where(mine, row, torch.full_like(row, spare))] = xt_l[src_tok]
+        buckets = buckets[:spare].view(e_local, cap, D)
+        hh = fn(torch.bmm(buckets, w1)) * torch.bmm(buckets, w3)
+        o = torch.bmm(hh, w2)  # [e_local, cap, D] (partial if the FF dim is sharded)
+        if ff_axes:
+            o = all_reduce_sum(o, mesh, ff_axes)
+        gathered = o.reshape(spare, D)[row]
+        gathered = torch.where(mine[:, None], gathered, torch.zeros_like(gathered))
+        terms = (gathered * weights_l.reshape(-1, 1).to(gathered.dtype)).view(tl, k, D)
+        y = torch.zeros_like(xt_l)
+        for j in range(k):  # the dense dispatch's order, in the model's dtype
+            y = y + terms[:, j]
+        return all_reduce_sum(y, mesh, "model")
+
+    flat_spec = P(tok_spec[0], None)  # routing weights / indices [T, k]
+    return shard_map(local_fn, mesh,
+                     (tok_spec, flat_spec, flat_spec, w1_spec, w1_spec, w2_spec), tok_spec,
+                     reduces=("model",) + ff_axes)(xt, weights, idx, p["w1"], p["w3"], p["w2"])
 
 
 def _normal_stack(gen: torch.Generator, shape, scale: float, dtype, n: Optional[int]):

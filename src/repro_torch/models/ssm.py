@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed.annotate import ann, full
 from repro_torch.models.layers import rms_norm
 
 
@@ -114,6 +115,7 @@ def mamba2_mixer_with_state(x: torch.Tensor, p: dict, cfg: SSMConfig, d_model: i
     conv_in = torch.cat([xs, bc], dim=-1)  # [B, S, di + 2GN]
     conv_out = F.silu(_causal_depthwise_conv(conv_in, p["conv_w"], p["conv_b"]))
     xs, b, c = torch.split(conv_out, [di, G * N, G * N], dim=-1)
+    xs = ann(xs, "batch", None, "dinner")
 
     dt = _softplus(dt.float() + p["dt_bias"].float())  # [B, S, H]
     A = -torch.exp(p["A_log"].float())  # [H]
@@ -121,8 +123,12 @@ def mamba2_mixer_with_state(x: torch.Tensor, p: dict, cfg: SSMConfig, d_model: i
     chunk = min(cfg.chunk_size, S)
     while S % chunk:
         chunk //= 2
-    y, final_state = ssd_chunked(xh.float() * dt[..., None], A[None, None, :] * dt,
-                                 b.reshape(B, S, G, N), c.reshape(B, S, G, N), chunk)
+    # the scan runs on whole tensors on every rank (its segment sums and
+    # masks have no DTensor sharding rules)
+    y, final_state = ssd_chunked(full(xh.float() * dt[..., None]), full(A[None, None, :] * dt),
+                                 full(b.reshape(B, S, G, N)), full(c.reshape(B, S, G, N)), chunk)
+    y = ann(y, "batch", None, None, None)
+    final_state = ann(final_state, "batch", "dinner", None, None)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(B, S, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["out_norm"], 1e-6)

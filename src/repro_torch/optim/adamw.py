@@ -49,7 +49,8 @@ class AdamW:
         step counter goes on the first parameter's device."""
         flat = _tree.leaves(params)
         dev = flat[0].device if flat else torch.device("cpu")
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        # zeros_like: a DTensor parameter's moments are DTensors laid out like it
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
             m=_tree.tree_map(zeros, params),

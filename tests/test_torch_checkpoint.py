@@ -132,13 +132,33 @@ def test_async_save_overlaps(tmp_path, rng):
 
 
 def test_restore_with_shardings_is_not_ported(tmp_path, rng):
-    """In place of the reference's elastic-resharding test: restore onto a
-    device mesh comes with the distributed package."""
-    m = CheckpointManager(CheckpointConfig(directory=str(tmp_path), async_save=False))
+    """In place of the reference's elastic-resharding test (the name is kept
+    from when restore onto a mesh was not ported): a save of the tree laid
+    out on the one-rank host mesh writes the same files as a save of the
+    plain tree, and ``restore(shardings=)`` gives each leaf back as a
+    DTensor with its sharding's placements and the saved values.  Several
+    ranks: test_torch_distributed.py."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import rules_for_mesh
+    from repro_torch.distributed.params import tree_shardings
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device="cpu")
     t = _tree(rng)
-    m.save(1, t)
-    with pytest.raises(NotImplementedError, match="ROADMAP module 12"):
-        m.restore(shardings=ttree.tree_map(lambda x: None, t), treedef_like=t)
+    sh = tree_shardings(t, mesh, rules_for_mesh(mesh))
+    plain = CheckpointManager(CheckpointConfig(directory=str(tmp_path / "a"), async_save=False))
+    plain.save(1, t)
+    m = CheckpointManager(CheckpointConfig(directory=str(tmp_path / "b"), async_save=False))
+    m.save(1, ttree.tree_map(place, t, sh))
+    for f in sorted((tmp_path / "a" / "step_00000001").iterdir()):
+        assert f.read_bytes() == (tmp_path / "b" / "step_00000001" / f.name).read_bytes()
+    step, got = m.restore(shardings=sh, treedef_like=t)
+    assert step == 1
+    for g, w, s in zip(ttree.leaves(got), ttree.leaves(t), ttree.leaves(sh)):
+        assert isinstance(g, DTensor) and list(g.placements) == s.placements
+        assert torch.equal(g.full_tensor(), w)
 
 
 def test_kernel_crc_impl_equivalent(tmp_path, rng):

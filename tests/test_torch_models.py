@@ -147,12 +147,16 @@ def test_rms_norm_rope_and_mlp_match_the_reference(rng, dtype):
 
 
 def test_tensor_parallel_paths_raise():
-    x = torch.zeros(1, 2, 8)
-    p = {"w1": torch.zeros(8, 16), "w3": torch.zeros(8, 16), "w2": torch.zeros(16, 8)}
-    with pytest.raises(NotImplementedError):
-        TL.gated_mlp(x, p, tp_comm="manual_bf16")
-    with pytest.raises(NotImplementedError):
-        TL.row_parallel_out(x, torch.zeros(8, 8), tp_comm="manual_bf16")
+    """tp_comm="manual_bf16" (the name is kept from when it raised): with no
+    rules context it is the plain path, as in the reference; the sharded
+    path is held in test_torch_distributed.py."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 2, 8, generator=g)
+    p = {"w1": torch.randn(8, 16, generator=g), "w3": torch.randn(8, 16, generator=g),
+         "w2": torch.randn(16, 8, generator=g)}
+    assert torch.equal(TL.gated_mlp(x, p, tp_comm="manual_bf16"), TL.gated_mlp(x, p))
+    wo = torch.randn(8, 8, generator=g)
+    assert torch.equal(TL.row_parallel_out(x, wo, tp_comm="manual_bf16"), x @ wo)
 
 
 @pytest.mark.parametrize("impl", ["chunked", "flash"])
@@ -308,5 +312,7 @@ def test_model_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError):
         params_from_numpy({"w": np.zeros(3, np.float32)})
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, mesh=object(), device="cpu")
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with pytest.raises(RuntimeError):
+        make_host_mesh()

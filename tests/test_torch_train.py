@@ -225,9 +225,34 @@ def test_one_train_step_matches_the_reference(ref):
 
 
 def test_grad_shardings_need_a_mesh(ref):
-    tm = build_model(ref["cfg"], remat=False, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TS.make_train_step(tm, AdamW(), grad_shardings=object())
+    """ZeRO-2's ``grad_shardings`` (the name is kept from when it raised
+    without a mesh): on the one-rank host mesh, with the moments' specs,
+    the step takes the gradients onto the moments' layout and gives the
+    step without it; the parameters and moments keep their layout."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import rules_for_mesh, use_rules
+    from repro_torch.distributed.params import opt_state_shardings, tree_shardings
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device="cpu")
+    rules = rules_for_mesh(mesh)
+    tm = build_model(ref["cfg"], mesh=mesh, remat=False, device="cpu")
+    params, batch = t_params(ref), t_batch(ref["batch"])
+    opt = AdamW()
+    want_p, want_o, want_m = TS.make_train_step(tm, opt)(params, opt.init(params), batch)
+    with use_rules(mesh, rules):
+        pp = ttree.tree_map(place, params, tree_shardings(params, mesh, rules))
+        osh = opt_state_shardings(None, params, mesh, rules)
+        oo = ttree.tree_map(place, opt.init(params), osh)
+        got_p, got_o, got_m = TS.make_train_step(tm, opt, grad_shardings=osh.m)(pp, oo, batch)
+    assert all(isinstance(t, DTensor) for t in ttree.leaves(got_p) + ttree.leaves(got_o.m))
+    for g, w in zip(ttree.leaves(got_p), ttree.leaves(want_p)):
+        assert torch.equal(g.full_tensor(), w)
+    for g, w in zip(ttree.leaves(got_o.m), ttree.leaves(want_o.m)):
+        assert torch.equal(g.full_tensor(), w)
+    assert float(got_m["loss"]) == float(want_m["loss"])
 
 
 def test_grad_accumulation_consistency(ref):
