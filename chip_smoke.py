@@ -189,6 +189,23 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      dense dispatch with the capacity factor raised to ceil(E / k) (no
      drops in either): within twice the bf16 noise measured in the run
      (the dense dispatch with the weights made f32 in place);
+  7a. (run last, with 7b-7d) the card's attained peaks: a bf16 matmul of
+     8192 cubed and a 1 GiB ``Tensor.copy_``, medians of 10 under CUDA
+     events, against ``roofline.H100``'s data-sheet peaks;
+  7b. tinyllama-1.1b's train step at full width and depth, 4e(i)'s 8 x
+     2048 tokens, chunked attention, on the host mesh: counted by
+     ``launch/dryrun.py`` with fake tensors and again for real on the card
+     under the same op counter (FLOPs and bytes equal to 1e-6, collective
+     bytes 0); a warm-up and the median of 3 timed steps; its roofline
+     terms, bottleneck, roofline share and MFU (against the data sheet's
+     peak and 7a's), the dry run's memory estimate against
+     ``max_memory_allocated``, and the MFU of 4e(i)'s flash step;
+  7c. 4d's decode step (4 slots, a 2048-token cache) counted for real and
+     timed: its roofline terms against the measured step;
+  7d. ``python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape
+     train_4k --mesh both`` in a process of its own on the host's cores,
+     after 7c, so that its host work shares no cores with a timed step:
+     both records must be ok;
   5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
@@ -221,8 +238,10 @@ import gc
 import importlib
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -3785,6 +3804,212 @@ def training_driver(dev, directory: Path = CKPT_DIR / "train", *, reduced=False,
     return out
 
 
+# --------------------------------------------------------------------------- phase 7
+#: phase 7a: the bf16 matmul and the copy that say what the data sheet's
+#: peaks mean on this card, each the median of PEAK_REPS calls
+PEAK_MATMUL_N, PEAK_COPY_BYTES, PEAK_REPS = 8192, GiB, 10
+#: phase 7b: the fake count and the real count of one step must agree to
+#: this (relative): the same ops on the same shapes
+COUNT_RTOL = 1e-6
+#: phase 7c: phase 4d's decode shape, 4 slots against a 2048-token cache
+ROOF_DECODE_SLOTS, ROOF_DECODE_CACHE, ROOF_DECODE_STEPS = 4, 2048, 10
+#: phase 7d: the dry run's own entry point, in a process of its own
+DRYRUN_CMD = ("-m", "repro_torch.launch.dryrun", "--arch", "tinyllama-1.1b", "--shape",
+              "train_4k", "--mesh", "both", "--jobs", "2")
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun"
+DRYRUN_TIMEOUT_S = 600
+
+
+def events_ms(fn, reps: int) -> float:
+    """Median device ms of one call of ``fn`` (after one warm-up call), each
+    call between its own pair of CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+@phase("7a the card's attained bf16 matmul and copy rates")
+def attained_peaks(dev, gen, card: str) -> dict:
+    """A bf16 ``torch.matmul`` of PEAK_MATMUL_N cubed and a 1 GiB
+    ``Tensor.copy_`` (read once, written once), against H100's data-sheet
+    peaks."""
+    from repro_torch.roofline import H100
+
+    n = PEAK_MATMUL_N
+    a = torch.randn((n, n), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((n, n), generator=gen, device=dev).to(torch.bfloat16)
+    mm_ms = events_ms(lambda: torch.matmul(a, b), PEAK_REPS)
+    del a, b
+    src = torch.empty(PEAK_COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    cp_ms = events_ms(lambda: dst.copy_(src), PEAK_REPS)
+    del src, dst
+    out = {"matmul_ms": mm_ms, "matmul_flops_per_s": 2.0 * n ** 3 / (mm_ms * 1e-3),
+           "copy_ms": cp_ms, "copy_bytes_per_s": 2.0 * PEAK_COPY_BYTES / (cp_ms * 1e-3)}
+    out["matmul_of_spec"] = out["matmul_flops_per_s"] / H100.peak_flops
+    out["copy_of_spec"] = out["copy_bytes_per_s"] / H100.hbm_bw
+    print(f"attained peaks on {card}: " + json.dumps(out))
+    check(all(math.isfinite(v) and v > 0 for v in out.values()), f"peaks: {out}")
+    return out
+
+
+def _roofline(cost, step_s: float) -> dict:
+    """The roofline terms of a counted step against its measured seconds."""
+    from repro_torch.roofline import roofline_terms
+
+    terms = roofline_terms(cost.flops, cost.bytes, cost.coll_bytes)
+    bound = max(terms["compute_s"], terms["memory_s"], terms["collective_s"])
+    return {"flops": cost.flops, "bytes": cost.bytes, "collective_bytes": cost.coll_bytes,
+            **terms, "step_s": step_s, "roofline_share": bound / step_s}
+
+
+@phase("7b tinyllama-1.1b's train step at full width: counted fake and real, timed")
+def roofline_train(dev, mesh, peaks: dict, train_full: dict, card: str) -> dict:
+    """tinyllama-1.1b at full width and depth, phase 4e(i)'s 8 x 2048 tokens,
+    chunked attention, on the host mesh: counted by ``launch/dryrun.py``
+    with fake tensors, then built with real ones on the card and counted
+    again under the same counter (the same FLOPs and bytes to COUNT_RTOL,
+    no collective bytes on one rank); one warm-up step, the median of 3
+    timed; its roofline terms, share and MFU, and the dry run's memory
+    estimate against the card's peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.annotate import use_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import build_model
+    from repro_torch.roofline import H100
+    from repro_torch.roofline.analysis import model_flops_for_cell
+    from repro_torch.roofline.op_cost import OpCounter
+
+    release(dev)
+    cfg = get_config("tinyllama-1.1b")
+    shape = ShapeConfig("train_8x2048", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    fake, meta = dryrun.lower_cell(cfg.name, shape.name, mesh, cfg=cfg, shape=shape,
+                                   device="cuda")
+    fake_s = time.perf_counter() - t0
+    fake_cost, rules = fake.cost(), meta["rules"]
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, mesh=mesh, remat=True, attn_impl="chunked", device=dev)
+    secs = []
+    with use_rules(mesh, rules):
+        step, (params, opt_state, batch) = dryrun.cell_step(
+            model, shape, mesh, rules, torch.Generator(device=dev).manual_seed(7))
+        with OpCounter() as real:
+            out = step(params, opt_state, batch)
+        del out
+        for _ in range(4):
+            sync(dev)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step(params, opt_state, batch)
+            loss = float(metrics["loss"])  # waits for the step
+            secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del params, opt_state, batch, metrics
+    real_cost = real.cost()
+    step_s = statistics.median(secs[1:])
+    mf = model_flops_for_cell(cfg, shape, "train")
+    res = {"fake": {"flops": fake_cost.flops, "bytes": fake_cost.bytes,
+                    "collective_bytes": fake_cost.coll_bytes, "count_s": fake_s},
+           **_roofline(real_cost, step_s), "step_s_all": secs, "loss": loss,
+           "model_flops": mf, "mfu_of_spec": mf / (step_s * H100.peak_flops),
+           "mfu_of_attained": mf / (step_s * peaks["matmul_flops_per_s"]),
+           "memory_estimate_bytes": meta["memory"]["argument_bytes"]
+           + meta["memory"]["temp_bytes"],
+           "memory": meta["memory"], "max_memory_allocated": peak,
+           "flash_step_4e_s": train_full["median_step_s"],
+           "flash_step_4e_mfu_of_spec": mf / (train_full["median_step_s"] * H100.peak_flops),
+           "flash_step_4e_mfu_of_attained":
+               mf / (train_full["median_step_s"] * peaks["matmul_flops_per_s"])}
+    print(f"train step roofline on {card}: " + json.dumps(res))
+    for key, want in (("flops", fake_cost.flops), ("bytes", fake_cost.bytes)):
+        check(abs(res[key] - want) <= COUNT_RTOL * want,
+              f"the real count's {key} {res[key]} are not the fake count's {want}")
+    check(real_cost.coll_bytes == 0 and fake_cost.coll_bytes == 0,
+          f"collective bytes on one rank: {real_cost.coll_bytes}, {fake_cost.coll_bytes}")
+    check(math.isfinite(loss), f"the counted train step's loss is {loss}")
+    return res
+
+
+@phase("7c tinyllama-1.1b's decode step at full width: counted, timed")
+def roofline_decode(dev, card: str) -> dict:
+    """Phase 4d's decode step (4 slots, a 2048-token cache, no mesh),
+    counted for real and timed (the median of ROOF_DECODE_STEPS steps, each
+    synchronised): its roofline terms against the measured step."""
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.api import build_model
+    from repro_torch.roofline.op_cost import OpCounter
+
+    release(dev)
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg, attn_impl="flash", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(8))
+    cache = model.init_cache(ROOF_DECODE_SLOTS, ROOF_DECODE_CACHE)
+    step = make_decode_step(model)
+    tokens = torch.zeros((ROOF_DECODE_SLOTS, 1), dtype=torch.int32, device=dev)
+    with OpCounter() as counter:
+        tokens, cache = step(params, cache, tokens)
+    secs = []
+    for _ in range(ROOF_DECODE_STEPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        tokens, cache = step(params, cache, tokens)
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+    weights = sum(t.numel() * t.element_size() for t in ttree.leaves(params))
+    res = {**_roofline(counter.cost(), statistics.median(secs)), "step_s_all": secs,
+           "weight_bytes": weights, "ops": sum(r["n"] for r in counter.records)}
+    del params, cache
+    print(f"decode step roofline on {card}: " + json.dumps(res))
+    check(res["bytes"] >= weights, f"the decode step's count reads {res['bytes']} B, less "
+          f"than its {weights} B of weights")
+    return res
+
+
+@phase("7d launch/dryrun.py: tinyllama-1.1b train_4k on both production meshes")
+def dryrun_records(card: str) -> dict:
+    """The dry run's entry point in a process of its own (a session of its
+    own, so that a timeout stops the processes it starts for its cells)."""
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, *DRYRUN_CMD, "--out", str(DRYRUN_OUT)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    print("\n".join("  " + line for line in out.splitlines() if not line.startswith("[rank")))
+    recs = {}
+    for mesh in ("single", "multi"):
+        path = DRYRUN_OUT / f"{mesh}__tinyllama-1.1b__train_4k.json"
+        check(path.exists(), f"the dry run wrote no {mesh} record (exit {proc.returncode})")
+        rec = json.loads(path.read_text())
+        check(rec["status"] == "ok", f"the dry run's {mesh} record: {rec['status']} "
+              f"{rec.get('reason', '')}")
+        recs[mesh] = {k: rec[k] for k in (
+            "n_chips", "flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev",
+            "compute_s", "memory_s", "collective_s", "bottleneck", "useful_flops_ratio",
+            "hbm_per_dev_gb", "fits_hbm", "compile_s")}
+    check(proc.returncode == 0, f"launch/dryrun.py exited {proc.returncode}")
+    print(f"dry-run records (host CPU beside {card}): " + json.dumps(recs))
+    return recs
+
+
 def main() -> int:
     try:
         return run()
@@ -3932,6 +4157,12 @@ def run() -> int:
         print(f"launches serving {arch} reduced on the host mesh (phase 3j): "
               f"{res['launches']}, all-reduces {res['all_reduces']}")
     mesh_full = serving_mesh_full(dev, mesh, full)
+    # slice 13: the roofline, last; 7d's dry run after the timed 7a-7c, so
+    # that its host work shares no cores with them
+    peaks = attained_peaks(dev, gen, card)
+    roof_train = roofline_train(dev, mesh, peaks, train_full, card)
+    roof_decode = roofline_decode(dev, card)
+    dry_recs = dryrun_records(card)
     print("checkpoint of tinyllama-1.1b (2 of 22 layers), seconds: " + json.dumps(ckpt))
     print("serving, tinyllama-1.1b.reduced() f32 (phase 3d): " + json.dumps(small))
     print("serving, tinyllama-1.1b full width and depth (phase 4d): "
@@ -3971,6 +4202,14 @@ def run() -> int:
     for key in ("ttft_split", "decode_s", "decode_steps", "decode_tok_s"):
         print(f"deepseek-moe-16b {key}: no mesh, dense (4h) {json.dumps(moe_full[key])}; "
               f"host mesh, a2a (4l) {json.dumps(mesh_full[DEEPSEEK_MOE][key])}")
+    print(f"roofline (phase 7) on {card}: " + json.dumps({
+        "peaks": peaks, "train_step": {k: roof_train[k] for k in (
+            "compute_s", "memory_s", "collective_s", "bottleneck", "step_s", "roofline_share",
+            "mfu_of_spec", "mfu_of_attained", "memory_estimate_bytes", "max_memory_allocated",
+            "flash_step_4e_mfu_of_spec")},
+        "decode_step": {k: roof_decode[k] for k in (
+            "compute_s", "memory_s", "collective_s", "bottleneck", "step_s", "roofline_share")},
+        "dryrun": dry_recs}))
     table = kernel_table()
     kernels = []
     for name, (_, replaces) in table.items():

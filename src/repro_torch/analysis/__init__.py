@@ -1,5 +1,10 @@
-"""Runtime analysis for the descriptor/Future programming model.
+"""Static and runtime analysis for the descriptor/Future programming model.
 
+  apilint    AST lint over source trees for Future/Device API misuse
+             (DSA1xx codes): dropped futures, blocking waits inside
+             completion callbacks, raw ``kick()`` busy-loops, swallowed
+             ``QueueFull``, trace rates outside [0, 1], unbatched submit
+             loops.
   desclint   descriptor validity (paper §3.2: the 64-byte contract):
              op-specific operand checks enforced at ``Device.submit`` via
              ``make_device(validate="strict"|"warn"|"off")``; typed
@@ -17,7 +22,7 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("desclint", "lockcheck")
+_SUBMODULES = ("apilint", "desclint", "lockcheck")
 
 __all__ = list(_SUBMODULES)
 

@@ -18,6 +18,7 @@ and a checkpointed layer replays its forward there, under the same rules.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 import torch
@@ -205,3 +206,21 @@ def replicate(x):
     from torch.distributed.tensor import Replicate
 
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def unflatten(t: torch.Tensor, dim: int, sizes) -> torch.Tensor:
+    """``t`` with dimension ``dim`` split into ``sizes`` (a reshape).
+    DTensor cannot split a dimension sharded over more ranks than its first
+    part has entries (XLA reshards there by itself, e.g. tinyllama's 4 KV
+    heads at tp 16, or 8 microbatches of a batch split 16 ways): such a
+    DTensor is gathered on that dimension first."""
+    dim = dim % t.ndim
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = t.device_mesh
+        on = [isinstance(pl, Shard) and pl.dim == dim for pl in t.placements]
+        if sizes[0] % math.prod(mesh.size(i) for i, o in enumerate(on) if o):
+            t = t.redistribute(mesh, [Replicate() if o else pl
+                                      for pl, o in zip(t.placements, on)])
+    return t.unflatten(dim, sizes)

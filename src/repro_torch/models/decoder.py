@@ -39,6 +39,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint as _ckpt
 
 from repro_torch import tree as ttree
@@ -265,7 +266,8 @@ class DecoderModel:
 
     # ------------------------------------------------------------------ embedding
     def _embed_tokens(self, params, tokens) -> torch.Tensor:
-        x = params["embed"][tokens.long()].to(self.dtype)
+        # an embedding lookup, not an index: DTensor shards it by vocab rows
+        x = F.embedding(tokens.long(), params["embed"]).to(self.dtype)
         if self.cfg.attn_pattern == "gemma3":
             # gemma scales embeddings by sqrt(d_model) rounded to the model's
             # dtype first, as JAX does (33.94 is 34.0 in bf16)
@@ -349,8 +351,10 @@ class DecoderModel:
         labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
         mask = batch.get("loss_mask")
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
-                if mask is None else mask.to(torch.float32).clone())
-        mask[:, -1] = 0.0
+                if mask is None else mask.to(torch.float32))
+        # the last position has no next token; written out of place, since a
+        # batch laid out as a DTensor has no rule for an indexed fill
+        mask = torch.cat([mask[:, :-1], torch.zeros_like(mask[:, -1:])], dim=1)
         ce = full(_chunked_ce(x, *self._unembed_w(params), labels, mask))
         aux = full(aux)
         loss = ce + aux

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
@@ -112,7 +113,8 @@ class EncDecModel:
                      lengths=lengths, max_cache_len=max_cache_len, remat=self.remat)
 
     def _embed(self, params, tokens) -> torch.Tensor:
-        return ann(full(params["embed"][tokens.long()].to(self.dtype)), "batch", None, "embed")
+        x = F.embedding(tokens.long(), params["embed"]).to(self.dtype)
+        return ann(full(x), "batch", None, "embed")
 
     # ------------------------------------------------------------------ encoder
     def encode(self, params, frame_embeds) -> torch.Tensor:
@@ -204,8 +206,9 @@ class EncDecModel:
         labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
         mask = batch.get("loss_mask")
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
-                if mask is None else mask.to(torch.float32).clone())
-        mask[:, -1] = 0.0
+                if mask is None else mask.to(torch.float32))
+        # out of place, as DecoderModel.loss writes it
+        mask = torch.cat([mask[:, :-1], torch.zeros_like(mask[:, -1:])], dim=1)
         ce = full(_chunked_ce(x, params["unembed"], False, labels, mask))
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 

@@ -37,6 +37,7 @@ from repro_torch.distributed.annotate import (
     full,
     replicate,
     shard_map,
+    unflatten,
 )
 from repro_torch.distributed.sharding import P, _as_tuple
 from repro_torch.kernels import flash_attention as _flash
@@ -116,7 +117,15 @@ def gated_mlp(x: torch.Tensor, p: dict, act: str = "silu", tp_comm: str = "auto"
             return out
     h = fn(x @ p["w1"]) * (x @ p["w3"])
     h = ann(h, "batch", None, "mlp")
-    return h @ p["w2"]
+    return _summed(h @ p["w2"])
+
+
+def _summed(out: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product [B, S, D] laid out by the rules at once: its
+    partial sums are all-reduced here (what GSPMD does in the reference),
+    not carried as a DTensor ``Partial`` into the residual stream, where
+    the next norm would all-reduce and the next matmul reshard them."""
+    return ann(out, "batch", None, "embed")
 
 
 def _tp_block_manual(x, p, fn):
@@ -147,14 +156,14 @@ def row_parallel_out(o_flat: torch.Tensor, wo: torch.Tensor, tp_comm: str = "aut
     rationale as gated_mlp)."""
     ctx = _current()
     if tp_comm != "manual_bf16" or ctx is None:
-        return o_flat @ wo
+        return _summed(o_flat @ wo)
     mesh, rules = ctx
     wo_spec = rules.spec(wo.shape, ("qkv_flat", None))
     if wo_spec[0] is None:
-        return o_flat @ wo
+        return _summed(o_flat @ wo)
     o_spec = rules.spec(o_flat.shape, ("batch", None, "qkv_flat"))
     if o_spec[2] is None:
-        return o_flat @ wo
+        return _summed(o_flat @ wo)
     axis = wo_spec[0]
 
     def local(o_l, w_l):
@@ -188,7 +197,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     dev = q.device
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
-    qg = q.reshape(B, Sq, KV, G, hd)
+    qg = unflatten(q, 2, (KV, G))
 
     # Small sequences: one dense block.
     if Sq * Skv <= 1024 * 1024:
@@ -243,7 +252,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      valid_mask: torch.Tensor, *, scale: Optional[float] = None) -> torch.Tensor:
     """Single-token attention against a cache.
 
-    q [B, H, hd]; k_cache, v_cache [B, S, KV, hd]; valid_mask [B, S] bool."""
+    q [B, H, hd]; k_cache, v_cache [B, S, KV, hd]; valid_mask [B, S] bool.
+    Under a rules context each rank attends over its own (batch x KV head x
+    cache sequence) shard, and ranks that split the sequence combine their
+    softmax sums (what GSPMD makes of the reference's einsums; DTensor's
+    own einsums over these layouts need its slowest resharding search)."""
+    ctx = _current()
+    if ctx is None:
+        return _decode_attention(q, k_cache, v_cache, valid_mask, scale, None)
+    mesh, rules = ctx
+    kv_spec = rules.spec(k_cache.shape, ("batch", "seq", "kv_heads", None))
+    b_ax, s_ax, kv_ax = kv_spec[0], kv_spec[1], kv_spec[2]
+    q_spec = P(b_ax, kv_ax, None)
+
+    def local(q_l, k_l, v_l, m_l):
+        return _decode_attention(q_l, k_l, v_l, m_l, scale,
+                                 None if s_ax is None else (mesh, s_ax))
+
+    return shard_map(local, mesh, (q_spec, kv_spec, kv_spec, P(b_ax, s_ax)), q_spec)(
+        q, k_cache, v_cache, valid_mask)
+
+
+def _decode_attention(q, k_cache, v_cache, valid_mask, scale, seq_split):
+    """``decode_attention`` on one rank's tensors; ``seq_split`` (mesh,
+    axes) when the cache's sequence is split over those mesh axes."""
     B, H, hd = q.shape
     _, S, KV, _ = k_cache.shape
     G = H // KV
@@ -252,8 +284,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) * scale
     s = torch.where(valid_mask[:, None, None, :], s,
                     torch.tensor(NEG_INF, dtype=torch.float32, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
+    if seq_split is None:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
+    else:
+        import torch.distributed as dist
+
+        mesh, axes = seq_split
+        m = s.amax(dim=-1, keepdim=True)
+        for a in _as_tuple(axes):
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+        p = torch.exp(s - m)
+        l = all_reduce_sum(p.sum(dim=-1, keepdim=True), mesh, axes)
+        o = all_reduce_sum(torch.einsum("bkgs,bskh->bkgh", p, v_cache.float()), mesh,
+                           axes) / l
     return o.reshape(B, H, hd).to(v_cache.dtype)
 
 
@@ -272,22 +316,17 @@ def _kv_heads_of(h0: int, n_local: int, H: int, KV: int, device) -> torch.Tensor
     return idx
 
 
-def _flash_call(q, k, v, causal, window, n_meta, q_offset=0):
-    """The flash kernel forward with the reference backward
-    (``_FlashRefBwd``), run per rank on its local (batch x head) shard when
-    a rules context is active.
+def _per_rank(run, whole, q, k, v):
+    """``run(q, k, v)`` per rank on its local (batch x head) shard when a
+    rules context is active, else on the tensors as they are.
 
     KV heads sharded like the query heads: each rank's KV heads are the
     ones its query heads read.  KV heads replicated while the query heads
     are sharded: each rank takes the KV heads its GLOBAL query heads read
     (``_kv_heads_of``).  (The reference passes the replicated KV through,
-    and its kernel then pairs local query head j with KV head j // (H_local
-    / KV), the wrong one; where H_local < KV that group size is 0.)  Any
-    other split: the direct call on the whole tensors, as the reference
-    does."""
-    def run(q, k, v):
-        return _FlashRefBwd.apply(q, k, v, causal, window, n_meta, q_offset)
-
+    and its flash kernel then pairs local query head j with KV head j //
+    (H_local / KV), the wrong one; where H_local < KV that group size is
+    0.)  Any other split: ``whole(q, k, v)``."""
     ctx = _current()
     if ctx is None:
         return run(q, k, v)
@@ -297,7 +336,7 @@ def _flash_call(q, k, v, causal, window, n_meta, q_offset=0):
     h_shard = rules.axis_size(q_spec[2])
     kv_shard = rules.axis_size(kv_spec[2])
     if kv_shard not in (1, h_shard):
-        return run(full(q), full(k), full(v))
+        return whole(q, k, v)
     if kv_shard == h_shard:
         return shard_map(run, mesh, (q_spec, kv_spec, kv_spec), q_spec)(q, k, v)
     H, KV = q.shape[2], k.shape[2]
@@ -309,6 +348,17 @@ def _flash_call(q, k, v, causal, window, n_meta, q_offset=0):
         return run(q_l, k_l.index_select(2, idx), v_l.index_select(2, idx))
 
     return shard_map(local, mesh, (q_spec, kv_spec, kv_spec), q_spec)(q, k, v)
+
+
+def _flash_call(q, k, v, causal, window, n_meta, q_offset=0):
+    """The flash kernel forward with the reference backward
+    (``_FlashRefBwd``), per rank (``_per_rank``); a split it cannot run
+    per rank takes the direct call on the whole tensors, as the reference
+    does."""
+    def run(q, k, v):
+        return _FlashRefBwd.apply(q, k, v, causal, window, n_meta, q_offset)
+
+    return _per_rank(run, lambda q, k, v: run(full(q), full(k), full(v)), q, k, v)
 
 
 class _FlashRefBwd(torch.autograd.Function):
@@ -347,18 +397,26 @@ def attention_trainable(q, k, v, *, causal: bool = True, window: int = 0, n_meta
     the baseline) or "flash" (the CUDA kernel forward, reference backward)."""
     if impl == "flash":
         return _flash_call(q, k, v, causal, window, n_meta, q_offset)
-    return attention(q, k, v, causal=causal, window=window, n_meta=n_meta, q_offset=q_offset)
+
+    # per rank too: DTensor's dispatch of each op of the block loop costs
+    # more host time than the op, and the grouped-query reshape regathers
+    # heads a rank does not need (a split it cannot run per rank takes
+    # the DTensors as they are)
+    def run(q, k, v):
+        return attention(q, k, v, causal=causal, window=window, n_meta=n_meta,
+                         q_offset=q_offset)
+
+    return _per_rank(run, run, q, k, v)
 
 
 # --------------------------------------------------------------------------- qkv projection helpers
 def project_qkv(x: torch.Tensor, p: dict, cfg, *, qk_norm_p: Optional[dict] = None):
     """x [B, S, D] -> q [B, S, H, hd], k, v [B, S, KV, hd] (+ optional
     per-head RMS qk-norm)."""
-    B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    q = unflatten(x @ p["wq"], 2, (H, hd))
+    k = unflatten(x @ p["wk"], 2, (KV, hd))
+    v = unflatten(x @ p["wv"], 2, (KV, hd))
     if qk_norm_p is not None:
         q = rms_norm(q, qk_norm_p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, qk_norm_p["k_norm"], cfg.norm_eps)

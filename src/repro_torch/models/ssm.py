@@ -82,8 +82,11 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor)
     """x [B, S, C]; w [K, C]; a causal depthwise convolution along S, in f32,
     cast back to x's type."""
     K, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    # K - 1 zeros in front, whatever S, as a concatenation of one-position
+    # zeros, and the accumulator shaped by zeros_like: on a DTensor both keep
+    # x's layout
+    xp = torch.cat([torch.zeros_like(x[:, :1])] * (K - 1) + [x], dim=1)
+    out = torch.zeros_like(x, dtype=torch.float32)
     for k in range(K):
         out = out + xp[:, k:k + S].float() * w[k].float()
     return (out + bias.float()).to(x.dtype)

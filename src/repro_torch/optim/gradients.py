@@ -7,6 +7,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.distributed.annotate import unflatten
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -52,18 +53,17 @@ class GradAccumulator:
 
         def split(x):
             bsz = x.shape[0] if x.dim() else 1
-            return x.reshape((n, bsz // n) + tuple(x.shape[1:]))
+            return unflatten(x.reshape((bsz,) + tuple(x.shape[1:])), 0, (n, bsz // n))
 
         def split_leaf(path, x):
             if path and path[-1] == "positions_thw":
-                return x.reshape((x.shape[0], n, x.shape[1] // n) + tuple(x.shape[2:])
-                                 ).transpose(0, 1)
+                return unflatten(x, 1, (n, x.shape[1] // n)).transpose(0, 1)
             return split(x)
 
         pairs, treedef = _tree.flatten_with_path(batch)
         micro = [split_leaf(path, x) for path, x in pairs]
-        acc = _tree.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+        # zeros_like: a DTensor parameter's accumulator is laid out like it
+        acc = _tree.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         loss_sum = torch.zeros(())
         for i in range(n):
             mb = _tree.unflatten(treedef, [x[i] for x in micro])

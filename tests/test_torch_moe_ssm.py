@@ -368,8 +368,9 @@ def test_ssd_chunked_matches_the_reference(rng, G, with_state):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_causal_depthwise_conv_matches_the_reference(rng, dtype):
-    x = rng.normal(size=(2, 11, 24)).astype(np.float32)
+@pytest.mark.parametrize("S", [1, 2, 3, 11])  # shorter than, equal to and past d_conv - 1
+def test_causal_depthwise_conv_matches_the_reference(rng, dtype, S):
+    x = rng.normal(size=(2, S, 24)).astype(np.float32)
     w = rng.normal(size=(4, 24)).astype(np.float32) * 0.1
     bias = rng.normal(size=(24,)).astype(np.float32) * 0.1
     jdt = jnp.dtype(dtype)
@@ -380,9 +381,10 @@ def test_causal_depthwise_conv_matches_the_reference(rng, dtype):
     same(got.float(), np.asarray(want.astype(jnp.float32)))
 
 
-#: sequence lengths for the mixer: one chunk (S <= chunk_size), chunks that
-#: halve to 8 (40), and an odd length whose chunk halves down to 1 (33)
-MIXER_LENGTHS = [5, 8, 40, 33]
+#: sequence lengths for the mixer: prompts shorter than the convolution's
+#: window (1, 2), one chunk (S <= chunk_size), chunks that halve to 8 (40),
+#: and an odd length whose chunk halves down to 1 (33)
+MIXER_LENGTHS = [1, 2, 5, 8, 40, 33]
 
 
 @pytest.mark.parametrize("S", MIXER_LENGTHS)
