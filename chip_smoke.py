@@ -181,7 +181,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      as in 3h: the same tokens on the card's mesh and the CPU's, every
      splice checked, one flash launch a layer a prefill, the a2a's
      all-reduces counted; tinyllama's tokens also those of the same
-     weights with no mesh;
+     weights with no mesh; mamba2-370m reduced too, its SSD scan in its
+     shard_map on the card, prompts of 1 and 2 tokens among its own: the
+     same tokens on the card's mesh, the CPU's and with no mesh;
   4l. both at full width and depth on the card's host mesh, served as in
      4d: tinyllama-1.1b must serve 4d's tokens; deepseek-moe-16b with the
      a2a dispatch, every splice bit-exact, its TTFT and decode steps
@@ -202,10 +204,13 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      ``max_memory_allocated``, and the MFU of 4e(i)'s flash step;
   7c. 4d's decode step (4 slots, a 2048-token cache) counted for real and
      timed: its roofline terms against the measured step;
-  7d. ``python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape
-     train_4k --mesh both`` in a process of its own on the host's cores,
-     after 7c, so that its host work shares no cores with a timed step:
-     both records must be ok;
+  7d. ``python -m repro_torch.launch.dryrun`` for tinyllama-1.1b train_4k
+     on both meshes and for hymba-1.5b train_4k, qwen2-vl-2b train_4k and
+     mamba2-370m prefill_32k on 16x16, one process each on the host's
+     cores, after 7c, so that their host work shares no cores with a timed
+     step: every record must be ok, mamba2's within 80 GB a rank, and each
+     one's FLOPs per rank is printed beside the reference's own count
+     (``docs/dryrun_reference_counts.json``);
   5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
@@ -2229,6 +2234,9 @@ def vlm_full(dev) -> dict:
 #: over "model" (NCCL on the card, gloo on the CPU)
 TINYLLAMA_ID = "tinyllama-1.1b"
 MESH_SMALL_PROMPTS = (16, 77, 33, 50, 64, 21)
+#: 3j's prompts to mamba2-370m: 1 and 2 tokens are shorter than its
+#: convolution's window of 3 (the cache's window is padded there)
+MESH_SSM_PROMPTS = (1, 2, 16, 33, 50)
 MESH_SMALL_NEW = 6
 
 
@@ -2282,10 +2290,11 @@ def serving_mesh_small(dev, mesh, host_mesh) -> dict:
     flash and tp_comm="manual_bf16", which is the plain path at one rank),
     their parameters laid out by the rules, served under the rules with
     every splice checked and admission pinned (as 3h), and with the same
-    weights on the CPU's host mesh: the same tokens.  tinyllama's tokens
-    also equal those of the same weights served with no mesh.  The launch
-    counts and the all-reduces are set to 0 just before the card serves
-    and read just after."""
+    weights on the CPU's host mesh: the same tokens.  mamba2-370m likewise
+    (its SSD scan through its shard_map on the card), with MESH_SSM_PROMPTS.
+    tinyllama's and mamba2's tokens also equal those of the same weights
+    served with no mesh.  The launch counts and the all-reduces are set to
+    0 just before the card serves and read just after."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch import tree as ttree
@@ -2294,7 +2303,7 @@ def serving_mesh_small(dev, mesh, host_mesh) -> dict:
     from repro_torch.models.api import build_model
 
     out = {}
-    for arch, dispatch in ((TINYLLAMA_ID, "dense"), (DEEPSEEK_MOE, "a2a")):
+    for arch, dispatch in ((TINYLLAMA_ID, "dense"), (DEEPSEEK_MOE, "a2a"), (MAMBA2, "dense")):
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
         kw = dict(remat=False, attn_impl="flash", tp_comm="manual_bf16", moe_dispatch=dispatch)
         card = build_model(cfg, mesh=mesh, device=dev, **kw)
@@ -2303,7 +2312,7 @@ def serving_mesh_small(dev, mesh, host_mesh) -> dict:
         host_params = ttree.tree_map(lambda t: t.cpu(), params)
         rng = np.random.default_rng(12)
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-                   for n in MESH_SMALL_PROMPTS]
+                   for n in (MESH_SSM_PROMPTS if arch == MAMBA2 else MESH_SMALL_PROMPTS)]
         serve_kw = dict(slots=3, max_cache=96, max_new=MESH_SMALL_NEW, max_steps=500, pin=True)
         splices: list = []
         reset_counts()
@@ -2328,14 +2337,15 @@ def serving_mesh_small(dev, mesh, host_mesh) -> dict:
               f"{arch}: the card's mesh served other tokens than the CPU's: {tokens} vs "
               f"{[r.output for r in on_cpu]}")
         check(len(splices) == len(prompts), f"{arch}: {len(splices)} splices checked")
-        check(dev.type != "cuda" or launches["flash_attention"] == cfg.num_layers * len(prompts),
+        layers = 0 if arch == MAMBA2 else cfg.num_layers  # mamba2 has no attention
+        check(dev.type != "cuda" or launches["flash_attention"] == layers * len(prompts),
               f"{arch}: flash_attention launched {launches['flash_attention']} times, not "
-              f"{cfg.num_layers} layers x {len(prompts)} prefills")
+              f"{layers} layers x {len(prompts)} prefills")
         res = {"card_s": secs, "cpu_s": cpu_secs, "launches": launches, "all_reduces": nccl,
                "splices_checked": len(splices)}
         if dispatch == "a2a":
             check(nccl > 0, f"{arch}: the a2a dispatch launched no all-reduce on the card")
-        if arch == TINYLLAMA_ID:
+        if arch in (TINYLLAMA_ID, MAMBA2):
             plain, _, _ = serve(build_model(cfg, device=dev, **kw), params,
                                 make_device(n_instances=2, policy="least_loaded", device=dev),
                                 prompts, **serve_kw)
@@ -3813,11 +3823,16 @@ PEAK_MATMUL_N, PEAK_COPY_BYTES, PEAK_REPS = 8192, GiB, 10
 COUNT_RTOL = 1e-6
 #: phase 7c: phase 4d's decode shape, 4 slots against a 2048-token cache
 ROOF_DECODE_SLOTS, ROOF_DECODE_CACHE, ROOF_DECODE_STEPS = 4, 2048, 10
-#: phase 7d: the dry run's own entry point, in a process of its own
-DRYRUN_CMD = ("-m", "repro_torch.launch.dryrun", "--arch", "tinyllama-1.1b", "--shape",
-              "train_4k", "--mesh", "both", "--jobs", "2")
+#: phase 7d: the dry run's own entry point, one process per (arch, shape,
+#: mesh) below, all started at once (each a session of its own); mamba2's
+#: record must also fit the card's memory
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "both"), ("hymba-1.5b", "train_4k", "single"),
+                ("qwen2-vl-2b", "train_4k", "single"), ("mamba2-370m", "prefill_32k", "single"))
+DRYRUN_MUST_FIT = ("mamba2-370m",)
 DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun"
 DRYRUN_TIMEOUT_S = 600
+#: the reference's own dry-run counts (tools/dryrun_reference_counts.py)
+DRYRUN_REFERENCE = ROOT / "docs" / "dryrun_reference_counts.json"
 
 
 def events_ms(fn, reps: int) -> float:
@@ -3978,34 +3993,62 @@ def roofline_decode(dev, card: str) -> dict:
     return res
 
 
-@phase("7d launch/dryrun.py: tinyllama-1.1b train_4k on both production meshes")
+@phase("7d launch/dryrun.py: tinyllama-1.1b train_4k on both production meshes, hymba-1.5b "
+       "and qwen2-vl-2b train_4k and mamba2-370m prefill_32k on 16x16")
 def dryrun_records(card: str) -> dict:
-    """The dry run's entry point in a process of its own (a session of its
-    own, so that a timeout stops the processes it starts for its cells)."""
+    """The dry run's entry point, one process for each of DRYRUN_CELLS, all
+    at once, each in a session of its own (so that the timeout stops the
+    processes it starts for its cells).  Every record must be ok, those of
+    DRYRUN_MUST_FIT within the card's memory; each record's FLOPs per rank
+    is printed beside the reference's count of the same cell
+    (DRYRUN_REFERENCE, a JSON file)."""
     shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.Popen([sys.executable, *DRYRUN_CMD, "--out", str(DRYRUN_OUT)],
-                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", mesh, "--jobs", "2" if mesh == "both" else "1",
+               "--out", str(DRYRUN_OUT)]
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True,
+                                      start_new_session=True))
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    outs = []
     try:
-        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        for proc in procs:
+            outs.append(proc.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
     finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.communicate()
-    print("\n".join("  " + line for line in out.splitlines() if not line.startswith("[rank")))
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    for out in outs:
+        print("\n".join("  " + line for line in out.splitlines() if not line.startswith("[rank")))
+    reference = json.loads(DRYRUN_REFERENCE.read_text())
     recs = {}
-    for mesh in ("single", "multi"):
-        path = DRYRUN_OUT / f"{mesh}__tinyllama-1.1b__train_4k.json"
-        check(path.exists(), f"the dry run wrote no {mesh} record (exit {proc.returncode})")
-        rec = json.loads(path.read_text())
-        check(rec["status"] == "ok", f"the dry run's {mesh} record: {rec['status']} "
-              f"{rec.get('reason', '')}")
-        recs[mesh] = {k: rec[k] for k in (
-            "n_chips", "flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev",
-            "compute_s", "memory_s", "collective_s", "bottleneck", "useful_flops_ratio",
-            "hbm_per_dev_gb", "fits_hbm", "compile_s")}
-    check(proc.returncode == 0, f"launch/dryrun.py exited {proc.returncode}")
+    for arch, shape, mesh_arg in DRYRUN_CELLS:
+        for mesh in (("single", "multi") if mesh_arg == "both" else (mesh_arg,)):
+            path = DRYRUN_OUT / f"{mesh}__{arch}__{shape}.json"
+            check(path.exists(), f"the dry run wrote no {mesh} {arch} {shape} record")
+            rec = json.loads(path.read_text())
+            check(rec["status"] == "ok", f"the dry run's {mesh} {arch} {shape} record: "
+                  f"{rec['status']} {rec.get('reason', '')}")
+            ref = reference[f"{mesh}/{arch}/{shape}"]
+            got = {k: rec[k] for k in (
+                "n_chips", "flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev",
+                "compute_s", "memory_s", "collective_s", "bottleneck", "useful_flops_ratio",
+                "hbm_per_dev_gb", "fits_hbm", "compile_s")}
+            got.update(reference_flops_per_dev=ref["flops_per_dev"],
+                       port_over_reference=rec["flops_per_dev"] / ref["flops_per_dev"])
+            print(f"  {mesh} {arch} {shape}: FLOPs/rank {rec['flops_per_dev']:.4e}, the "
+                  f"reference's {ref['flops_per_dev']:.4e} (x{got['port_over_reference']:.3f}), "
+                  f"{rec['hbm_per_dev_gb']} GB a rank")
+            if arch in DRYRUN_MUST_FIT:
+                check(rec["fits_hbm"], f"{mesh} {arch} {shape} needs {rec['hbm_per_dev_gb']} GB "
+                      "a rank")
+            recs[f"{mesh}/{arch}/{shape}"] = got
+    check(all(proc.returncode == 0 for proc in procs),
+          f"launch/dryrun.py exited {[proc.returncode for proc in procs]}")
     print(f"dry-run records (host CPU beside {card}): " + json.dumps(recs))
     return recs
 

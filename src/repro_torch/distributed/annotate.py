@@ -62,7 +62,40 @@ def ann(x: torch.Tensor, *logical_dims):
     if ctx is None:
         return x
     mesh, rules = ctx
-    return place(x, NamedSharding(mesh, rules.spec(x.shape, logical_dims)))
+    return constrain(x, NamedSharding(mesh, rules.spec(x.shape, logical_dims)))
+
+
+def constrain(x, sharding: NamedSharding):
+    """``place``, whose backward lays the cotangent out by ``sharding`` too
+    (JAX's ``with_sharding_constraint``, whose transpose constrains the
+    cotangent).  DTensor's own backward of a redistribution sends the
+    gradient back as it comes, and a ``Partial`` one (the input gradient of
+    a column-parallel product) reaches the matmuls' backward as a partial
+    sum, where DTensor gathers whole weights to take it.  Here it is summed
+    onto the layout first: an all-reduce or reduce-scatter of activations."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, sharding.mesh, [Replicate()] * sharding.mesh.ndim,
+                               run_check=False)
+    return _Constrain.apply(x, sharding.mesh, list(sharding.placements))
+
+
+class _Constrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.mesh, ctx.pl, ctx.in_pl = mesh, pl, list(x.placements)
+        return x.view_as(x) if ctx.in_pl == pl else x.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial
+
+        g = g.redistribute(ctx.mesh, ctx.pl)
+        # back to the input's layout, but never from a sum into a partial
+        # sum (DTensor's rule for the gradient of a Partial)
+        back = [o if isinstance(i, Partial) else i for i, o in zip(ctx.in_pl, ctx.pl)]
+        return g.redistribute(ctx.mesh, back), None, None
 
 
 def shard_map(fn, mesh, in_specs, out_specs, reduces=()):
@@ -114,7 +147,7 @@ def shard_map(fn, mesh, in_specs, out_specs, reduces=()):
             return fn(*(_SumGradOver.apply(x, g) if g and x.requires_grad else x
                         for x, g in zip(xs, sum_back)))
 
-        out = local_map(local, out_placements=out_pl if many else out_pl[0],
+        out = local_map(local, out_placements=tuple(out_pl) if many else out_pl[0],
                         in_placements=tuple(in_pl), in_grad_placements=tuple(grads),
                         device_mesh=mesh)(*placed)
         if given:

@@ -151,7 +151,11 @@ def attn_sub(x: torch.Tensor, p: dict, ctx: Ctx, layer_type: str, mode: str,
                                                               k[:, 0], v[:, 0])
         o = L.decode_attention(q[:, 0], k_all, v_all, valid)[:, None]
     o = ann(o, "batch", None, "heads", None)
-    out = L.row_parallel_out(o.reshape(B, S, H * hd), p["wo"], ctx.tp_comm)
+    # laid out as wo's rows: where the heads do not divide the model axis
+    # (and their flat width does) the gradient is gathered here, since
+    # DTensor cannot split a sharded flat width back into heads
+    o = ann(o.reshape(B, S, H * hd), "batch", None, "qkv_flat")
+    out = L.row_parallel_out(o, p["wo"], ctx.tp_comm)
     return out, new_cache
 
 

@@ -280,7 +280,7 @@ class DecoderModel:
         if self.cfg.vlm is not None and "patch_embeds" in batch:
             # the patch embeddings replace the tokens from position 1 (JAX's
             # dynamic_update_slice, which moves the start back to fit)
-            pe = batch["patch_embeds"].to(self.dtype)
+            pe = full(batch["patch_embeds"]).to(self.dtype)
             at = max(0, min(1, x.shape[1] - pe.shape[1]))
             x = torch.cat([x[:, :at], pe, x[:, at + pe.shape[1]:]], dim=1)
         if self.n_meta:

@@ -30,7 +30,7 @@ import torch.utils.checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
-from repro_torch.distributed.annotate import ann, full
+from repro_torch.distributed.annotate import ann, full, unflatten
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.decoder import _chunked_ce, _layer, _stack, _to, place_cache
@@ -54,16 +54,22 @@ def _cross_attend(x, p, cfg: ModelConfig, ck, cv):
     """q from x against precomputed cross K / V (no rope, not causal)."""
     bsz, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    q = ann((x @ p["wq"]).reshape(bsz, S, H, hd), "batch", None, "heads", None)
-    o = L.attention(q, ck, cv, causal=False)
-    return o.reshape(bsz, S, H * hd) @ p["wo"]
+    q = ann(unflatten(x @ p["wq"], 2, (H, hd)), "batch", None, "heads", None)
+    # per rank on its (batch x head) shard, as the self-attention runs
+    o = L.attention_trainable(q, ck, cv, causal=False)
+    return _out_proj(o.reshape(bsz, S, H * hd), p["wo"])
+
+
+def _out_proj(o_flat, wo):
+    """The row-parallel output projection, summed at once (``layers._summed``)."""
+    return L._summed(ann(o_flat, "batch", None, "qkv_flat") @ wo)
 
 
 def _cross_kv(enc_out, p, cfg: ModelConfig):
     bsz, Skv, _ = enc_out.shape
     KV, hd = cfg.num_kv_heads, cfg.head_dim
-    ck = (enc_out @ p["wk"]).reshape(bsz, Skv, KV, hd)
-    cv = (enc_out @ p["wv"]).reshape(bsz, Skv, KV, hd)
+    ck = unflatten(enc_out @ p["wk"], 2, (KV, hd))
+    cv = unflatten(enc_out @ p["wv"], 2, (KV, hd))
     return ann(ck, "batch", None, "kv_heads", None), ann(cv, "batch", None, "kv_heads", None)
 
 
@@ -183,10 +189,10 @@ class EncDecModel:
             x, _ = self_attn(x, p_l, c_l["self"])
             xq = L.rms_norm(x, p_l["lnx"], eps)
             bsz = xq.shape[0]
-            q = (xq @ p_l["xattn"]["wq"]).reshape(bsz, H, hd)
+            q = unflatten(xq @ p_l["xattn"]["wq"], 2, (H, hd))[:, 0]
             valid = torch.ones(c_l["cross_k"].shape[:2], dtype=torch.bool, device=x.device)
             o = L.decode_attention(q, c_l["cross_k"], c_l["cross_v"], valid)
-            x = x + (o.reshape(bsz, 1, H * hd) @ p_l["xattn"]["wo"])
+            x = x + _out_proj(o.reshape(bsz, 1, H * hd), p_l["xattn"]["wo"])
             x = mlp(x, p_l)
         return x, cache
 

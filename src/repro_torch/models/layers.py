@@ -30,11 +30,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.annotate import (
+    _Constrain,
     _current,
     all_reduce_sum,
     ann,
     axis_index,
     full,
+    is_dtensor,
     replicate,
     shard_map,
     unflatten,
@@ -429,7 +431,24 @@ def project_qkv(x: torch.Tensor, p: dict, cfg, *, qk_norm_p: Optional[dict] = No
 def unembed(x: torch.Tensor, table: torch.Tensor, transpose: bool) -> torch.Tensor:
     """Logits head in f32.  table is [V, D] if transpose (tied) else [D, V]."""
     w = table.T if transpose else table
-    return (x @ w.to(x.dtype)).float()
+    return (_split_as_rows(x, w) @ w.to(x.dtype)).float()
+
+
+def _split_as_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last dim split over the mesh dims that split ``w``'s
+    rows (a table sharded on d_model where the vocab does not divide the
+    model axis).  Given a whole ``x``, DTensor's backward may take the
+    weight's gradient whole and slice it after (it weighs collectives, not
+    compute): 16x the product at tp 16."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = list(x.placements)
+    for i, p in enumerate(w.placements):
+        if isinstance(p, Shard) and p.dim == w.ndim - 2 and isinstance(pl[i], Replicate):
+            pl[i] = Shard(x.ndim - 1)
+    return x if pl == list(x.placements) else _Constrain.apply(x, x.device_mesh, pl)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

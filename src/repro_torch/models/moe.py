@@ -23,12 +23,13 @@ The expert-parallel dispatch (``dispatch="a2a"``) runs on a mesh with a
 rank buckets its own expert group, runs those experts, scatters the
 partial outputs back and one all-reduce over "model" combines them.
 Without a mesh "a2a" is the dense dispatch, as in the reference.  Under a
-rules context the dense dispatch plans and scatters on whole tensors on
-every rank (DTensor has no sharding rule for its data-dependent scatter),
-with the experts' products on their expert shards.
+rules context the dense dispatch runs per rank in a ``shard_map`` too
+(DTensor has no sharding rule for its data-dependent scatter): tokens on
+their data shards, experts on their "model" shards.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -37,9 +38,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed.annotate import (
     _current,
+    _SumGradOver,
     all_reduce_sum,
     ann,
-    full,
+    axis_index,
     is_dtensor,
     shard_map,
 )
@@ -82,33 +84,126 @@ def dispatch_plan(idx: torch.Tensor, cfg: MoEConfig, T: int):
 
 def _moe_dense(xt: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor, p: dict,
                cfg: MoEConfig, act: str) -> torch.Tensor:
-    """Capacity-based scatter / gather dispatch.  Tokens go into per-expert
-    buckets [E, cap, D], each expert's FFN runs as one batched product, and
-    the results come back weighted by the router.  A kept assignment has a
-    bucket row of its own, so the scatter writes each row once; the dropped
-    ones write a spare row past the buckets, which is cut off."""
-    xt, weights, idx = full(xt), full(weights), full(idx)
-    T, D = xt.shape
-    E, k = cfg.num_experts, cfg.top_k
+    """Capacity-based scatter / gather dispatch (``_dispatch`` on every
+    token and expert; under a rules context ``_moe_dense_per_rank``)."""
+    ctx = _current()
+    if ctx is not None:
+        return _moe_dense_per_rank(xt, weights, idx, p, cfg, act, *ctx)
+    return _dispatch(xt, weights, idx, p["w1"], p["w3"], p["w2"], cfg, act, xt.shape[0])
+
+
+def _dispatch(xt, weights, idx, w1, w3, w2, cfg: MoEConfig, act: str, T: int, r: int = 0,
+              n_tok: int = 1, e0: int = 0, tok_sum=None) -> torch.Tensor:
+    """The dispatch of this rank's share of the tokens (share ``r`` of
+    ``n_tok``: ``xt`` [T / n_tok, D]) through its experts e0 ..
+    e0 + w1.shape[0] - 1, with the routing of all T tokens (``weights``,
+    ``idx`` [T, k]).  Tokens go into per-expert buckets [E, cap, D], each
+    expert's FFN runs as one batched product, and the results come back
+    weighted by the router, added in order k = 0 .. k-1.  A bucket row
+    takes its token by a gather (a kept assignment has a row of its own;
+    rows no token of this share fills are zeros), never a [T * k, D]
+    copy of the tokens.  ``tok_sum`` (mesh, axes): the other shares of
+    the tokens are on those axes, whose sum completes the buckets; the
+    experts then run alike on each of them, and each takes its share of
+    the weight gradients' rows (``_BmmRowShare``).  Returns [T / n_tok,
+    D], partial over the experts of other ranks."""
+    t_local, D = xt.shape
+    k, e_local = cfg.top_k, w1.shape[0]
     flat_e, pos_c, keep, src_tok, cap = dispatch_plan(idx, cfg, T)
-    spare = E * cap
-    row = torch.where(keep, flat_e * cap + pos_c, torch.full_like(pos_c, spare))
-    buckets = torch.zeros((spare + 1, D), dtype=xt.dtype, device=xt.device)
-    buckets[row] = xt[src_tok]
-    buckets = ann(buckets[:spare].view(E, cap, D), "expert", None, None)
+    local_e = flat_e - e0
+    mine = keep & (local_e >= 0) & (local_e < e_local)
+    spare = e_local * cap
+    row = torch.where(mine, local_e * cap + pos_c, torch.full_like(pos_c, spare))
+    src = src_tok - r * t_local
+    ours = mine & (src >= 0) & (src < t_local)
+    src_of_row = torch.full((spare + 1,), t_local, dtype=src.dtype, device=src.device)
+    src_of_row[torch.where(ours, row, torch.full_like(row, spare))] = torch.where(
+        ours, src, torch.full_like(src, t_local))
+    x_pad = torch.cat([xt, xt.new_zeros((1, D))])
+    buckets = x_pad[src_of_row[:spare]].view(e_local, cap, D)
+    share = (cap * r // n_tok, cap * (r + 1) // n_tok)
+    if tok_sum is not None:
+        buckets = all_reduce_sum(buckets, *tok_sum)
 
     fn = _act(act)
-    hh = fn(torch.bmm(buckets, p["w1"])) * torch.bmm(buckets, p["w3"])
-    hh = ann(hh, "expert", None, "mlp")
-    out = ann(torch.bmm(hh, p["w2"]), "expert", None, None)  # [E, cap, D]
+    hh = fn(_BmmRowShare.apply(buckets, w1, *share)) * _BmmRowShare.apply(buckets, w3, *share)
+    o = _BmmRowShare.apply(hh, w2, *share)  # [e_local, cap, D]
+    if tok_sum is not None:  # every share's cotangent of the common buckets, summed
+        mesh, axes = tok_sum
+        o = _SumGradOver.apply(o, [mesh.get_group(a) for a in axes])
 
-    gathered = full(out).reshape(spare, D)[flat_e * cap + pos_c]  # [T*k, D]
-    gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
-    terms = (gathered * weights.reshape(-1, 1).to(gathered.dtype)).view(T, k, D)
+    a = slice(r * t_local * k, (r + 1) * t_local * k)  # this share's assignments
+    gathered = o.reshape(spare, D)[row[a].clamp(max=spare - 1)]
+    gathered = torch.where(mine[a, None], gathered, torch.zeros_like(gathered))
+    terms = (gathered * weights.reshape(-1, 1)[a].to(gathered.dtype)).view(t_local, k, D)
     y = torch.zeros_like(xt)
     for j in range(k):  # the reference's scatter-add order, in the model's dtype
         y = y + terms[:, j]
-    return ann(y, "batch", None)
+    return y
+
+
+def _moe_dense_per_rank(xt, weights, idx, p, cfg: MoEConfig, act, mesh, rules) -> torch.Tensor:
+    """The dense dispatch in a ``shard_map``, laid out as the reference's
+    GSPMD run lays it out: tokens over the data axes, experts over "model",
+    each expert's bucket whole on every data rank.  The plan (one cumsum
+    over all T * k assignments) needs the routing whole: ``idx`` and
+    ``weights`` are gathered, the tokens are not.  Each rank runs
+    ``_dispatch`` on its tokens and experts, and one sum over the expert
+    (and expert-FF) axes completes its tokens' outputs.  The experts'
+    weight gradients are left a partial sum over the data axes, as XLA
+    splits them."""
+    names = list(mesh.mesh_dim_names)
+    E, T = cfg.num_experts, xt.shape[0]
+    tok_spec = rules.spec(xt.shape, ("batch", None))
+    w1_spec = rules.spec(p["w1"].shape[-3:], ("expert", "fsdp", "expert_ff"))
+    w2_spec = rules.spec(p["w2"].shape[-3:], ("expert", "expert_ff", "fsdp"))
+    # the products contract the whole d_model: an FSDP shard on D is
+    # gathered at the shard_map's boundary
+    w1_spec = P(w1_spec[0], None, w1_spec[2])
+    w2_spec = P(w2_spec[0], w2_spec[1], None)
+    e_axes, ff_axes = _as_tuple(w1_spec[0]), _as_tuple(w1_spec[2])
+    tok_axes = _as_tuple(tok_spec[0])
+    if set(tok_axes) & (set(e_axes) | set(ff_axes)):
+        tok_spec, tok_axes = P(None, None), ()
+
+    def ways(axes) -> int:
+        return math.prod(mesh.size(names.index(a)) for a in axes)
+
+    n_tok, red = ways(tok_axes), e_axes + ff_axes
+    e_local = E // ways(e_axes)
+
+    def local_fn(xt_l, weights_w, idx_w, w1, w3, w2):
+        y = _dispatch(xt_l, weights_w, idx_w, w1, w3, w2, cfg, act, T,
+                      r=axis_index(mesh, tok_axes) if tok_axes else 0, n_tok=n_tok,
+                      e0=axis_index(mesh, e_axes) * e_local if e_axes else 0,
+                      tok_sum=(mesh, tok_axes) if n_tok > 1 else None)
+        return all_reduce_sum(y, mesh, red) if ways(red) > 1 else y
+
+    whole = P(None, None)
+    return shard_map(local_fn, mesh, (tok_spec, whole, whole, w1_spec, w1_spec, w2_spec),
+                     tok_spec, reduces=red)(xt, weights, idx, p["w1"], p["w3"], p["w2"])
+
+
+class _BmmRowShare(torch.autograd.Function):
+    """``torch.bmm(a, w)``; the backward takes w's gradient over rows lo:hi
+    of a only (this rank's share of rows that every rank holds alike, with
+    a cotangent that every rank holds alike): a partial sum, which the
+    ranks' shares complete.  With the whole range it is autograd's own
+    backward of ``bmm``."""
+
+    @staticmethod
+    def forward(ctx, a, w, lo: int, hi: int):
+        ctx.save_for_backward(a, w)
+        ctx.rows = (lo, hi)
+        return torch.bmm(a, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        lo, hi = ctx.rows
+        ga = g.bmm(w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        gw = a[:, lo:hi].transpose(1, 2).bmm(g[:, lo:hi]) if ctx.needs_input_grad[1] else None
+        return ga, gw, None, None
 
 
 def moe_block(x: torch.Tensor, p: dict, cfg: MoEConfig, act: str = "silu",

@@ -18,8 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.distributed.annotate import ann, full
-from repro_torch.models.layers import rms_norm
+from repro_torch.distributed.annotate import _current, ann, axis_index, shard_map, unflatten
+from repro_torch.distributed.sharding import P, _as_tuple
+from repro_torch.models.layers import _kv_heads_of, _summed, rms_norm
 
 
 def segsum(x: torch.Tensor) -> torch.Tensor:
@@ -78,6 +79,46 @@ def ssd_chunked(x: torch.Tensor, a_bar: torch.Tensor, b: torch.Tensor, c: torch.
     return (y_diag + y_off).reshape(B, S, H, P), state
 
 
+def _ssd_per_rank(x, a_bar, b, c, chunk: int):
+    """``ssd_chunked`` on each rank's (batch x head) shard when a rules
+    context is active, else on the tensors as they are.
+
+    The scan is independent per batch row and per head.  Batch rows go
+    over the rules' batch axes and heads over the "dinner" axes where the
+    head count divides them; where it does not (hymba's 50 heads at tp
+    16), the rows go over both, if they divide, and each rank keeps its
+    rows' heads whole (else the heads stay whole on the "dinner" axes).
+    B and C are passed whole on those axes and each rank takes the groups
+    its GLOBAL heads read (``_kv_heads_of``)."""
+    ctx = _current()
+    if ctx is None:
+        return ssd_chunked(x, a_bar, b, c, chunk)
+    mesh, rules = ctx
+    Bsz, _, H, _ = x.shape
+    G = b.shape[2]
+    x_spec = rules.spec(x.shape, ("batch", None, "dinner", None))
+    rows, heads = x_spec[0], x_spec[2]
+    if heads is None:
+        names = list(mesh.mesh_dim_names)
+        both = sorted(set(_as_tuple(rules.table.get("batch")))
+                      | set(_as_tuple(rules.table.get("dinner"))), key=names.index)
+        if len(both) > len(_as_tuple(rows)) and Bsz % rules.axis_size(tuple(both)) == 0:
+            rows = tuple(both)
+    x_spec = P(rows, None, heads, None)
+    bc_spec = P(rows, None, None, None)
+
+    def local(x_l, a_l, b_l, c_l):
+        n_local = x_l.shape[2]
+        h0 = axis_index(mesh, heads) * n_local if heads is not None else 0
+        if n_local != H:
+            idx = _kv_heads_of(h0, n_local, H, G, x_l.device)
+            b_l, c_l = b_l.index_select(2, idx), c_l.index_select(2, idx)
+        return ssd_chunked(x_l, a_l, b_l, c_l, chunk)
+
+    return shard_map(local, mesh, (x_spec, P(rows, None, heads), bc_spec, bc_spec),
+                     (x_spec, P(rows, heads, None, None)))(x, a_bar, b, c)
+
+
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """x [B, S, C]; w [K, C]; a causal depthwise convolution along S, in f32,
     cast back to x's type."""
@@ -97,8 +138,64 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _in_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for the input projection [D, 2 d_inner + 2 G N + H].
+    Where the rules shard its columns, DTensor's column-parallel product;
+    where the width does not divide the "dinner" axis (hymba: 6482 at tp
+    16) the rules leave the weight whole, and each rank computes a ragged
+    share of the columns and gathers the rest (XLA's padded split of the
+    same product in the reference), not every column on every rank."""
+    ctx = _current()
+    if ctx is None:
+        return x @ w
+    mesh, rules = ctx
+    axes = _as_tuple(rules.table.get("dinner"))
+    if rules.spec(w.shape, (None, "dinner"))[1] is not None or len(axes) != 1:
+        return x @ w
+    n, C = rules.axis_size(axes), w.shape[-1]
+    if n <= 1:
+        return x @ w
+    per = -(-C // n)
+    x_spec = rules.spec(x.shape, ("batch",) + (None,) * (x.ndim - 1))
+    group = mesh.get_group(axes[0])
+
+    def local(x_l, w_l):
+        r = axis_index(mesh, axes)
+        lo, hi = min(r * per, C), min((r + 1) * per, C)
+        return _GatherColumns.apply(x_l @ w_l[:, lo:hi], per, C, lo, group)
+
+    return shard_map(local, mesh, (x_spec, P(None, None)), x_spec, reduces=axes)(x, w)
+
+
+class _GatherColumns(torch.autograd.Function):
+    """Each rank's ``per`` columns (fewer on the last ranks) gathered into
+    all C; the backward takes this rank's columns of the (replicated)
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, cols, per: int, C: int, lo: int, group):
+        import torch.distributed as dist
+
+        ctx.span = (lo, lo + cols.shape[-1])
+        n = dist.get_world_size(group)
+        pad = F.pad(cols, (0, per - cols.shape[-1])).contiguous()
+        out = pad.new_empty((n * pad.shape[0],) + pad.shape[1:])
+        dist.all_gather_into_tensor(out, pad, group=group)
+        out = out.view((n,) + pad.shape)
+        return torch.movedim(out, 0, -2).flatten(-2)[..., :C].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi = ctx.span
+        return g[..., lo:hi], None, None, None, None
+
+
 def _split(zxbcdt: torch.Tensor, di: int, gn2: int):
-    """The input projection's z, x, (B, C) and dt parts."""
+    """The input projection's z, x, (B, C) and dt parts.  The projection's
+    columns are sharded across those parts' bounds: they are gathered
+    first, through ``ann``, so that the gradient comes back summed and laid
+    out as the columns are, and the weight's gradient stays a shard."""
+    zxbcdt = ann(zxbcdt, *(("batch",) + (None,) * (zxbcdt.ndim - 1)))
     return torch.split(zxbcdt, [di, di, gn2, zxbcdt.shape[-1] - 2 * di - gn2], dim=-1)
 
 
@@ -114,7 +211,7 @@ def mamba2_mixer_with_state(x: torch.Tensor, p: dict, cfg: SSMConfig, d_model: i
     di, H = cfg.d_inner(d_model), cfg.n_heads(d_model)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.head_dim
 
-    z, xs, bc, dt = _split(x @ p["in_proj"], di, 2 * G * N)
+    z, xs, bc, dt = _split(_in_proj(x, p["in_proj"]), di, 2 * G * N)
     conv_in = torch.cat([xs, bc], dim=-1)  # [B, S, di + 2GN]
     conv_out = F.silu(_causal_depthwise_conv(conv_in, p["conv_w"], p["conv_b"]))
     xs, b, c = torch.split(conv_out, [di, G * N, G * N], dim=-1)
@@ -122,22 +219,26 @@ def mamba2_mixer_with_state(x: torch.Tensor, p: dict, cfg: SSMConfig, d_model: i
 
     dt = _softplus(dt.float() + p["dt_bias"].float())  # [B, S, H]
     A = -torch.exp(p["A_log"].float())  # [H]
-    xh = xs.reshape(B, S, H, P)
+    # 50 heads (hymba) do not split 16 ways: unflatten gathers them first
+    xh = unflatten(xs, -1, (H, P))
     chunk = min(cfg.chunk_size, S)
     while S % chunk:
         chunk //= 2
-    # the scan runs on whole tensors on every rank (its segment sums and
-    # masks have no DTensor sharding rules)
-    y, final_state = ssd_chunked(full(xh.float() * dt[..., None]), full(A[None, None, :] * dt),
-                                 full(b.reshape(B, S, G, N)), full(c.reshape(B, S, G, N)), chunk)
-    y = ann(y, "batch", None, None, None)
+    y, final_state = _ssd_per_rank(xh.float() * dt[..., None], A[None, None, :] * dt,
+                                   b.reshape(B, S, G, N), c.reshape(B, S, G, N), chunk)
+    y = ann(y, "batch", None, "dinner", None)
     final_state = ann(final_state, "batch", "dinner", None, None)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(B, S, di).to(x.dtype)
+    # laid out by d_inner, so that the gradient comes back in y's layout:
+    # DTensor cannot split a sharded d_inner into heads that do not divide
+    y = ann(y.reshape(B, S, di), "batch", None, "dinner").to(x.dtype)
     y = rms_norm(y * F.silu(z), p["out_norm"], 1e-6)
     K1 = cfg.d_conv - 1
-    conv_state = conv_in[:, S - K1:] if S >= K1 else F.pad(conv_in, (0, 0, K1 - S, 0))
-    return y @ p["out_proj"], final_state, conv_state
+    # fewer positions than the window: zeros in front, as one-position
+    # concatenations (the card's DTensor lays out F.pad's result wrongly)
+    conv_state = (conv_in[:, S - K1:] if S >= K1 else
+                  torch.cat([torch.zeros_like(conv_in[:, :1])] * (K1 - S) + [conv_in], dim=1))
+    return _summed(y @ p["out_proj"]), final_state, conv_state
 
 
 def mamba2_decode_step(x: torch.Tensor, state: torch.Tensor, conv_state: torch.Tensor,
@@ -149,7 +250,7 @@ def mamba2_decode_step(x: torch.Tensor, state: torch.Tensor, conv_state: torch.T
     di, H = cfg.d_inner(d_model), cfg.n_heads(d_model)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.head_dim
 
-    z, xs, bc, dt = _split(x @ p["in_proj"], di, 2 * G * N)
+    z, xs, bc, dt = _split(_in_proj(x, p["in_proj"]), di, 2 * G * N)
     conv_in = torch.cat([xs, bc], dim=-1)  # [B, di + 2GN]
     window = torch.cat([conv_state, conv_in[:, None].to(conv_state.dtype)], dim=1)  # [B, K, C]
     w = p["conv_w"].float()  # [K, C]
@@ -158,7 +259,7 @@ def mamba2_decode_step(x: torch.Tensor, state: torch.Tensor, conv_state: torch.T
 
     dt = _softplus(dt.float() + p["dt_bias"].float())  # [B, H]
     A = -torch.exp(p["A_log"].float())  # [H]
-    xh = xs.reshape(B, H, P).float()
+    xh = unflatten(xs, -1, (H, P)).float()
     bg = b.reshape(B, G, N).repeat_interleave(H // G, dim=1).float()  # [B, H, N]
     cg = c.reshape(B, G, N).repeat_interleave(H // G, dim=1).float()
 
@@ -168,7 +269,7 @@ def mamba2_decode_step(x: torch.Tensor, state: torch.Tensor, conv_state: torch.T
     y = (state * cg[:, :, None, :]).sum(-1) + p["D"].float()[None, :, None] * xh
     y = y.reshape(B, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["out_norm"], 1e-6)
-    return y @ p["out_proj"], state, window[:, 1:]
+    return ann(y @ p["out_proj"], "batch", "embed"), state, window[:, 1:]
 
 
 # --------------------------------------------------------------------------- init

@@ -285,6 +285,165 @@ CHECKS = {"collectives": collectives, "moe": moe, "layers": layers, "models": mo
           "families": families, "placement": placement}
 
 
+# --------------------------------------------------------------------------- the mesh repairs
+#: decode steps after each prefill in the repairs' checks
+REPAIR_DECODE = 3
+
+
+def odd_ssd_hymba(cfg):
+    """Reduced hymba with 3 SSD heads of 128 (d_inner 384): the head count
+    divides no model axis of 2, while d_inner does."""
+    ssm = dataclasses.replace(cfg.hybrid.ssm, expand=3, head_dim=128)
+    return dataclasses.replace(cfg, hybrid=dataclasses.replace(cfg.hybrid, ssm=ssm))
+
+
+def _f32_reduced(arch, **kw):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32", **kw)
+
+
+def _plain_and_mesh(cfg, mesh, seed, *, prompts=(), train=None, kw=None):
+    """``cfg``'s model run unsharded and on ``mesh`` under its rules, with
+    the same weights: each prompt's prefill logits and REPAIR_DECODE decode
+    steps' logits, and with ``train`` (a batch) one ZeRO-1 AdamW step's
+    loss, grad norm and new parameters.  {"<run>_<what>": array}."""
+    from repro_torch import tree
+    from repro_torch.distributed import rules_for_mesh, use_rules
+    from repro_torch.distributed.params import opt_state_shardings, tree_shardings
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+
+    rules = rules_for_mesh(mesh)
+    plain = build_model(cfg, device="cpu", **(kw or {}))
+    params = plain.init(torch.Generator().manual_seed(seed))
+    out = {}
+    for name in ("plain", "mesh"):
+        model = plain if name == "plain" else build_model(cfg, mesh=mesh, device="cpu",
+                                                          **(kw or {}))
+        ctx = use_rules(mesh, rules) if name == "mesh" else contextlib.nullcontext()
+
+        def laid(t):
+            return (tree.tree_map(place, t, tree_shardings(t, mesh, rules))
+                    if name == "mesh" else t)
+
+        with ctx:
+            p = laid(params)
+            for i, (tokens, steps) in enumerate(prompts):
+                cache, logits, _ = model.prefill(p, {"tokens": tokens % cfg.vocab_size}, 32)
+                got = [_np(logits)]
+                for tok in steps[:REPAIR_DECODE]:
+                    logits, cache = model.decode_step(p, cache, tok % cfg.vocab_size)
+                    got.append(_np(logits))
+                out[f"{name}_prompt{i}"] = np.stack(got)
+            if train is not None:
+                opt = AdamW(lr=1e-3)
+                state = _moments(opt.init(params), seed)
+                if name == "mesh":
+                    state = tree.tree_map(place, state,
+                                          opt_state_shardings(state, params, mesh, rules))
+                new_p, _, met = make_train_step(model, opt)(p, state, laid(train))
+                out[f"{name}_loss"], out[f"{name}_gnorm"] = _np(met["loss"]), _np(met["grad_norm"])
+                for pname, t in tree.flatten_with_names(new_p):
+                    out[f"{name}_np/{pname}"] = _np(t)
+    return out
+
+
+def _moments(state, seed):
+    """AdamW state at step 10 with small moments, as ``models`` takes the
+    reference's: a first step from zero moments moves each weight by the
+    learning rate times the sign of its gradient, whatever its size."""
+    from repro_torch import tree
+
+    gen = torch.Generator().manual_seed(seed)
+    return type(state)(step=torch.tensor(10, dtype=state.step.dtype),
+                       m=tree.tree_map(lambda t: torch.randn(t.shape, generator=gen) * 1e-3,
+                                       state.m),
+                       v=tree.tree_map(lambda t: torch.rand(t.shape, generator=gen) * 9e-6
+                                       + 1e-6, state.v))
+
+
+def _prompts(inp, *lengths):
+    return [(torch.from_numpy(inp["rep_tokens"][:, :n]), torch.from_numpy(inp["rep_steps"]))
+            for n in lengths]
+
+
+def odd_heads(inp, rank):
+    """Hymba with an SSD head count the model axis does not divide: a
+    batch of 2 prefills (the rows do not divide data x model, so each rank
+    keeps its rows' heads whole) and a batch of 4 trains (rows over both
+    axes)."""
+    cfg = odd_ssd_hymba(_f32_reduced("hymba-1.5b"))
+    return _plain_and_mesh(cfg, _mesh((2, 2)), 5, prompts=_prompts(inp, 12),
+                           train={"tokens": torch.from_numpy(inp["rep_train4"]) % cfg.vocab_size})
+
+
+def ssm_scan(inp, rank):
+    """mamba2 with its 16 SSD heads over "model": a train step of 4 rows
+    of two chunks, and a prefill."""
+    cfg = _f32_reduced("mamba2-370m")
+    return _plain_and_mesh(cfg, _mesh((2, 2)), 6, prompts=_prompts(inp, 12),
+                           train={"tokens": torch.from_numpy(inp["rep_train4"]) % cfg.vocab_size})
+
+
+def short_prompts(inp, rank):
+    """1- and 2-token prompts to mamba2 and hymba (shorter than the
+    convolution's window of 3; hymba's 4 meta tokens come first)."""
+    out = {}
+    for arch in ("mamba2-370m", "hymba-1.5b"):
+        got = _plain_and_mesh(_f32_reduced(arch), _mesh((2, 2)), 7, prompts=_prompts(inp, 1, 2))
+        out.update({f"{arch}/{k}": v for k, v in got.items()})
+    return out
+
+
+def moe_dense(inp, rank):
+    """deepseek-moe's dense dispatch per rank: tokens over "data", its 4
+    experts over "model"."""
+    cfg = _f32_reduced("deepseek-moe-16b")
+    return _plain_and_mesh(cfg, _mesh((2, 2)), 8, prompts=_prompts(inp, 12),
+                           train={"tokens": torch.from_numpy(inp["rep_train4"]) % cfg.vocab_size},
+                           kw=dict(moe_dispatch="dense"))
+
+
+def vlm_train(inp, rank):
+    """qwen2-vl's ZeRO-1 train step with patch embeddings and M-RoPE
+    positions, the batch laid out by the rules (the reference's weights,
+    moments and inputs)."""
+    from repro_torch import tree
+    from repro_torch.distributed import rules_for_mesh, use_rules
+    from repro_torch.distributed.params import opt_state_shardings, tree_shardings
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build_model, opt_state_from_numpy, params_from_numpy
+    from repro_torch.optim.adamw import AdamW
+
+    mesh = _mesh((2, 2))
+    rules = rules_for_mesh(mesh)
+    cfg = _f32_reduced("qwen2-vl-2b")
+    pre = "vlm_"
+    params = params_from_numpy(_unflat({k[len(pre) + 2:]: v for k, v in inp.items()
+                                        if k.startswith(pre + "p/")}), device="cpu")
+    st = _unflat({k[len(pre) + 2:]: v for k, v in inp.items() if k.startswith(pre + "o/")})
+    state = opt_state_from_numpy((st["step"], st["m"], st["v"]), device="cpu")
+    batch = {k: torch.from_numpy(inp[pre + k]) for k in ("tokens", "patch_embeds",
+                                                        "positions_thw")}
+    model = build_model(cfg, mesh=mesh, device="cpu")
+    with use_rules(mesh, rules):
+        pp = tree.tree_map(place, params, tree_shardings(params, mesh, rules))
+        state = tree.tree_map(place, state, opt_state_shardings(state, params, mesh, rules))
+        batch = tree.tree_map(place, batch, tree_shardings(batch, mesh, rules))
+        _, _, met = make_train_step(model, AdamW(lr=1e-3))(pp, state, batch)
+    return {"loss": _np(met["loss"]), "gnorm": _np(met["grad_norm"])}
+
+
+#: the repairs' checks (``test_torch_mesh_repairs.py``), run by ``run`` as
+#: the checks above are
+REPAIRS = {"odd_heads": odd_heads, "ssm_scan": ssm_scan, "short_prompts": short_prompts,
+           "moe_dense": moe_dense, "vlm_train": vlm_train}
+
+
 def run(rank, world, port, workdir, names):
     """One rank: every check in ``names``; rank 0 saves each one's outputs."""
     torch.set_num_threads(1)
@@ -294,7 +453,7 @@ def run(rank, world, port, workdir, names):
         inp = dict(np.load(os.path.join(workdir, "inputs.npz"), allow_pickle=False))
         inp["dir"] = np.array(workdir)
         for name in names:
-            out = CHECKS[name](inp, rank)
+            out = {**CHECKS, **REPAIRS}[name](inp, rank)
             if rank == 0:
                 np.savez(os.path.join(workdir, f"port_{name}.npz"), **out)
             if name == "placement":  # every rank's own shard, for the layout check
