@@ -2009,7 +2009,8 @@ def recorded_routing(calls: list):
 
     def router_topk(x, w_router, cfg):
         weights, idx, aux = base(x, w_router, cfg)
-        probs = torch.softmax(x.float() @ w_router.float(), dim=-1)
+        with torch.no_grad():
+            probs = torch.softmax(x.float() @ w_router.float(), dim=-1)
         top = probs.sort(dim=-1, descending=True).values
         k = cfg.top_k
         margin = (float((top[:, k - 1] - top[:, k]).min()) if k < probs.shape[-1]
@@ -2086,13 +2087,13 @@ def serving_gemma_small(dev) -> dict:
 VLM_BATCH, VLM_SEQ, VLM_GRID, VLM_NEW = 2, 2048, 16, 16
 
 
-def vlm_batch(cfg, seed: int) -> dict:
-    """CPU tensors: VLM_BATCH x VLM_SEQ tokens, VLM_GRID x VLM_GRID patch
+def vlm_batch(cfg, seed: int, seq: int = VLM_SEQ) -> dict:
+    """CPU tensors: VLM_BATCH x ``seq`` tokens, VLM_GRID x VLM_GRID patch
     embeddings (0.02 x a normal draw) at positions 1 .. VLM_GRID^2 with
     patch (r, c) at (t, h, w) = (1, 1 + r, 1 + c), the text after them at
     t = h = w = 1 + VLM_GRID + j, position 0 at (0, 0, 0)."""
     rng = np.random.default_rng(seed)
-    bsz, seq, grid = VLM_BATCH, VLM_SEQ, VLM_GRID
+    bsz, grid = VLM_BATCH, VLM_GRID
     n_patch = grid * grid
     thw = np.zeros((3, seq), np.int32)
     r, c = np.divmod(np.arange(n_patch), grid)
@@ -2862,6 +2863,200 @@ def encdec_full(dev) -> dict:
           f"step's logits max |decode - teacher-forced prefill| {err:.3e} (|logits| up to "
           f"{out['logits_absmax']:.3f}; the {seq.shape[1]}-token prefill {tf_s:.4f} s); "
           f"launches {counts}; torch.cuda.max_memory_allocated {peak} B")
+    return out
+
+
+# --------------------------------------------------------------------------- phase 4m
+#: phase 4m: the families beside tinyllama trained at full width, each
+#: FAMILY_STEPS steps on one synthetic batch of FAMILY_BATCH x FAMILY_SEQ
+#: tokens (the loss on it must fall; on a new batch a step the first steps'
+#: loss moves by less than its noise), flash and per-layer remat as in 4e(i)
+FAMILY_BATCH, FAMILY_SEQ, FAMILY_STEPS, FAMILY_LR = 2, 2048, 4, 1e-3
+FAMILIES_TRAINED = ("gemma3-1b", "qwen2-vl-2b", MAMBA2, HYMBA, SEAMLESS, DEEPSEEK_MOE)
+#: bytes a trained parameter holds on the card: bf16 weights and gradients
+#: (2 + 2) and AdamW's two f32 moments (4 + 4, ``optim/adamw.py``)
+TRAIN_BYTES_A_PARAM = 12
+#: deepseek-moe-16b is cut to the most layers whose TRAIN_BYTES_A_PARAM
+#: bytes a parameter take at most this share of the card's memory; the
+#: rest holds the activations (its 2 x 2048 x 102400 f32 logits alone are
+#: 1.7 GB) and the update's temporaries
+MOE_TRAIN_SHARE = 0.375
+#: the reduced step, card against CPU: 2 x FAMILY_SMALL_SEQ tokens in f32;
+#: loss and gradient norm within the tests' MODEL_RTOL (the same f32
+#: arithmetic, sums in other orders)
+FAMILY_SMALL_SEQ, FAMILY_TRAIN_RTOL = 512, 1e-4
+
+
+def family_batch(cfg, seq: int, seed: int) -> dict:
+    """CPU tensors: ``SyntheticLMDataset``'s first batch of FAMILY_BATCH x
+    ``seq`` tokens (with its frame embeddings for the encoder-decoder);
+    for the VLM, ``vlm_batch``'s patch embeddings on the (t, h, w) grid
+    instead of the dataset's, and no loss on the patches' positions."""
+    from repro_torch.data.pipeline import SyntheticLMDataset
+
+    b = SyntheticLMDataset(cfg, FAMILY_BATCH, seq, seed=seed).batch_at(0)
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in b.items()}
+    if cfg.vlm is not None:
+        grid = vlm_batch(cfg, seed, seq=seq)
+        out.update(patch_embeds=grid["patch_embeds"], positions_thw=grid["positions_thw"])
+        out["loss_mask"][:, 1:1 + grid["patch_embeds"].shape[1]] = 0.0
+    return out
+
+
+def n_params(cfg) -> int:
+    """Parameters of ``cfg``'s model, counted from its own ``init`` on fake
+    tensors (no memory)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import tree as ttree
+    from repro_torch.models.api import build_model
+
+    with FakeTensorMode():
+        params = build_model(cfg, device="cpu").init(torch.Generator())
+        return sum(t.numel() for t in ttree.leaves(params))
+
+
+def moe_train_depth(cfg, dev):
+    """deepseek-moe-16b cut to the most layers whose weights, gradients and
+    AdamW moments (TRAIN_BYTES_A_PARAM a parameter) fit MOE_TRAIN_SHARE of
+    the card: (the cut config, the reckoning)."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    budget = MOE_TRAIN_SHARE * total
+    two, three = n_params(dataclasses.replace(cfg, num_layers=2)), n_params(
+        dataclasses.replace(cfg, num_layers=3))
+    per_layer = three - two  # an MoE layer (layer 0 is dense)
+    layers = 2 + int((budget / TRAIN_BYTES_A_PARAM - two) // per_layer)
+    layers = max(2, min(cfg.num_layers, layers))
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    held = n_params(cut)
+    whole = two + (cfg.num_layers - 2) * per_layer
+    reckoning = {"card_bytes": total, "budget_bytes": budget, "bytes_a_param": TRAIN_BYTES_A_PARAM,
+                 "params_2_layers": two, "params_an_moe_layer": per_layer, "layers": layers,
+                 "params": held, "train_bytes": TRAIN_BYTES_A_PARAM * held,
+                 "params_all_layers": whole, "train_bytes_all_layers": TRAIN_BYTES_A_PARAM * whole}
+    print(f"{cfg.name} reckoning: {two} parameters at 2 layers (embed, unembed, the dense "
+          f"layer 0 and one MoE layer), {per_layer} an MoE layer; x {TRAIN_BYTES_A_PARAM} B "
+          f"(bf16 weights and gradients, f32 AdamW moments): all {cfg.num_layers} layers "
+          f"{reckoning['train_bytes_all_layers'] / 1e9:.2f} GB, over the budget of "
+          f"{MOE_TRAIN_SHARE} x {total / 1e9:.2f} GB = {budget / 1e9:.2f} GB; {layers} layers "
+          f"{held} parameters, {reckoning['train_bytes'] / 1e9:.2f} GB")
+    return cut, reckoning
+
+
+def train_family(dev, cfg, seed: int) -> dict:
+    """``make_train_step`` (flash, remat, AdamW) for FAMILY_STEPS steps on
+    one ``family_batch`` on the card: the losses (finite, falling), the
+    gradient norms, the seconds of each step, the peak memory and the flash
+    launches (twice a layer a step where the family takes flash: forward
+    and remat replay; none for mamba2 and seamless, whose attention is none
+    and the chunked path)."""
+    from repro_torch import tree as ttree
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+
+    release(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, remat=True, attn_impl="flash", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    count = sum(t.numel() for t in ttree.leaves(params))
+    opt = AdamW(lr=FAMILY_LR)
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt)
+    batch = {k: v.to(dev) for k, v in family_batch(cfg, FAMILY_SEQ, seed).items()}
+    reset_counts()
+    losses, gnorms, secs = [], [], []
+    for _ in range(FAMILY_STEPS):
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        secs.append(time.perf_counter() - t0)
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = read_counts(("flash_attention",))["flash_attention"]
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    # mamba2 has no attention; seamless's runs the chunked path in both
+    # packages (the reference's EncDecModel swallows attn_impl)
+    takes_flash = cfg.num_heads > 0 and cfg.encoder is None
+    want = 2 * cfg.num_layers * FAMILY_STEPS if takes_flash else 0
+    step_s = statistics.median(secs[1:])
+    out = {"layers": cfg.num_layers, "d_model": cfg.d_model, "params": count,
+           "losses": losses, "grad_norms": gnorms, "step_s": secs, "median_step_s": step_s,
+           "tokens_per_s": FAMILY_BATCH * FAMILY_SEQ / step_s, "peak_bytes": peak,
+           "flash_launches": launches}
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {count} params; "
+          f"losses {losses}; seconds a step {secs}; {out['tokens_per_s']:.0f} tokens/s; "
+          f"peak memory {peak} B; flash launches {launches}")
+    check(all(np.isfinite(losses)), f"{cfg.name}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: {losses}")
+    check(dev.type != "cuda" or launches == want,
+          f"{cfg.name}: flash_attention launched {launches} times, not {want}")
+    return out
+
+
+def train_step_card_and_cpu(dev, cfg, seed: int) -> dict:
+    """One ``make_train_step`` (flash, remat, AdamW) of ``cfg`` in f32 from
+    the same weights and batch on the card and on the CPU: the loss and the
+    gradient norm within FAMILY_TRAIN_RTOL.  An MoE model's CPU step
+    replays the card's expert choices (``replayed_routing``), since a
+    choice can flip under f32 rounding."""
+    from repro_torch import tree as ttree
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamW
+
+    opt = AdamW(lr=FAMILY_LR)
+    card = build_model(cfg, remat=True, attn_impl="flash", device=dev)
+    params = card.init(torch.Generator(device=dev).manual_seed(seed))
+    batch = family_batch(cfg, FAMILY_SMALL_SEQ, seed)
+    calls: list = []
+    with recorded_routing(calls) if cfg.moe is not None else contextlib.nullcontext():
+        _, _, got = make_train_step(card, opt)(params, opt.init(params),
+                                               {k: v.to(dev) for k, v in batch.items()})
+    params = ttree.tree_map(lambda t: t.cpu(), params)
+    cpu = build_model(cfg, remat=True, attn_impl="flash", device="cpu")
+    with replayed_routing(calls) if cfg.moe is not None else contextlib.nullcontext():
+        _, _, want = make_train_step(cpu, opt)(params, opt.init(params), batch)
+    out = {}
+    for key in ("loss", "grad_norm"):
+        a, b = float(got[key]), float(want[key])
+        out[key] = {"card": a, "cpu": b, "rel_err": abs(a - b) / abs(b)}
+        check(out[key]["rel_err"] <= FAMILY_TRAIN_RTOL,
+              f"{cfg.name} reduced: the {key} is {a} on the card, {b} on the CPU")
+    if cfg.moe is not None:
+        out["router_calls_replayed"] = len(calls)
+    return out
+
+
+@phase("4m training gemma3, qwen2-vl, mamba2, hymba, seamless and deepseek-moe on the card")
+def training_families(dev, card: str) -> dict:
+    """Each of FAMILIES_TRAINED trained FAMILY_STEPS steps at full width
+    (``train_family``; deepseek-moe-16b cut in depth by
+    ``moe_train_depth``, the rest at full depth), then one step of each at
+    ``reduced()`` size in f32 on the card against the CPU
+    (``train_step_card_and_cpu``)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for i, arch in enumerate(FAMILIES_TRAINED):
+        cfg = get_config(arch)
+        reckoning = None
+        if arch == DEEPSEEK_MOE:
+            cfg, reckoning = moe_train_depth(cfg, dev)
+        out[arch] = train_family(dev, cfg, seed=20 + i)
+        if reckoning is not None:
+            out[arch]["reckoning"] = reckoning
+    release(dev)
+    for i, arch in enumerate(FAMILIES_TRAINED):
+        small = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        out[arch]["reduced_card_vs_cpu"] = train_step_card_and_cpu(dev, small, seed=30 + i)
+    print(f"training on {card}:")
+    for arch, r in out.items():
+        print(f"  {arch}: {r['layers']} layers, peak {r['peak_bytes'] / 1e9:.2f} GB, "
+              f"{r['median_step_s']:.3f} s a step, {r['tokens_per_s']:.0f} tokens/s, flash "
+              f"launches {r['flash_launches']}, reduced f32 card vs CPU: loss "
+              f"{r['reduced_card_vs_cpu']['loss']['rel_err']:.2e}, grad norm "
+              f"{r['reduced_card_vs_cpu']['grad_norm']['rel_err']:.2e}")
     return out
 
 
@@ -3825,10 +4020,18 @@ COUNT_RTOL = 1e-6
 ROOF_DECODE_SLOTS, ROOF_DECODE_CACHE, ROOF_DECODE_STEPS = 4, 2048, 10
 #: phase 7d: the dry run's own entry point, one process per (arch, shape,
 #: mesh) below, all started at once (each a session of its own); mamba2's
-#: record must also fit the card's memory
+#: records must also fit the card's memory.  The last three cells are the
+#: ones whose counts the mesh repairs of the sequence split (qwen2-vl's
+#: prefill), the FSDP experts (maverick) and the idle data axes (mamba2 at
+#: batch 1) brought within DRYRUN_RATIO_BOUND of the reference's.
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "both"), ("hymba-1.5b", "train_4k", "single"),
-                ("qwen2-vl-2b", "train_4k", "single"), ("mamba2-370m", "prefill_32k", "single"))
+                ("qwen2-vl-2b", "train_4k", "single"), ("mamba2-370m", "prefill_32k", "single"),
+                ("mamba2-370m", "long_500k", "both"), ("qwen2-vl-2b", "prefill_32k", "single"),
+                ("llama4-maverick-400b-a17b", "decode_32k", "single"))
 DRYRUN_MUST_FIT = ("mamba2-370m",)
+#: every record's FLOPs a rank over the reference's count of the same cell
+#: (PERF.md section 2's bound)
+DRYRUN_RATIO_BOUND = 1.25
 DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun"
 DRYRUN_TIMEOUT_S = 600
 #: the reference's own dry-run counts (tools/dryrun_reference_counts.py)
@@ -3993,15 +4196,17 @@ def roofline_decode(dev, card: str) -> dict:
     return res
 
 
-@phase("7d launch/dryrun.py: tinyllama-1.1b train_4k on both production meshes, hymba-1.5b "
-       "and qwen2-vl-2b train_4k and mamba2-370m prefill_32k on 16x16")
+@phase("7d launch/dryrun.py: tinyllama-1.1b train_4k and mamba2-370m long_500k on both "
+       "production meshes; hymba-1.5b and qwen2-vl-2b train_4k, mamba2-370m and qwen2-vl-2b "
+       "prefill_32k and llama4-maverick decode_32k on 16x16")
 def dryrun_records(card: str) -> dict:
     """The dry run's entry point, one process for each of DRYRUN_CELLS, all
     at once, each in a session of its own (so that the timeout stops the
     processes it starts for its cells).  Every record must be ok, those of
     DRYRUN_MUST_FIT within the card's memory; each record's FLOPs per rank
     is printed beside the reference's count of the same cell
-    (DRYRUN_REFERENCE, a JSON file)."""
+    (DRYRUN_REFERENCE, a JSON file) and must be within DRYRUN_RATIO_BOUND
+    of it."""
     shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
@@ -4043,6 +4248,9 @@ def dryrun_records(card: str) -> dict:
             print(f"  {mesh} {arch} {shape}: FLOPs/rank {rec['flops_per_dev']:.4e}, the "
                   f"reference's {ref['flops_per_dev']:.4e} (x{got['port_over_reference']:.3f}), "
                   f"{rec['hbm_per_dev_gb']} GB a rank")
+            check(got["port_over_reference"] <= DRYRUN_RATIO_BOUND,
+                  f"{mesh} {arch} {shape} counts {got['port_over_reference']:.3f} x the "
+                  f"reference's FLOPs a rank")
             if arch in DRYRUN_MUST_FIT:
                 check(rec["fits_hbm"], f"{mesh} {arch} {shape} needs {rec['hbm_per_dev_gb']} GB "
                       "a rank")
@@ -4175,6 +4383,10 @@ def run() -> int:
     encdec = encdec_full(dev)
     print(f"launches of seamless-m4t-medium's prefill and decode (phase 4k): "
           f"{encdec['launches']}")
+    # the families' training, before 3h and 4h (which need the card's memory
+    # to themselves); each model's steps set the counts to 0 just before
+    # them and read them just after
+    families = training_families(dev, card)
     # slice 10: the MoE and SSM families, last: 4h holds deepseek-moe-16b in
     # f32 (65.5 GB), so nothing of the earlier phases may still be held;
     # each path sets the counts to 0 just before it and reads them just
@@ -4237,6 +4449,7 @@ def run() -> int:
     print("training tinyllama-1.1b full width and depth, eager (phase 4e(i)): "
           + json.dumps(train_full))
     print("launch/train.py at full width, 2 of 22 layers (phase 4e(ii)): " + json.dumps(driver))
+    print(f"training the other families (phase 4m) on {card}: " + json.dumps(families))
     print(f"serving on the host mesh, reduced, f32 (phase 3j) on {card}: " + json.dumps(
         {a: shown(r) for a, r in mesh_small.items()}))
     for arch, res in mesh_full.items():

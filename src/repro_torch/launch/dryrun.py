@@ -343,9 +343,18 @@ def main(argv=None):
                     help="cells run side by side, each in a process of its own")
     ap.add_argument("--timeout", type=float, default=None,
                     help="seconds a cell's process may count before it is left uncounted")
+    ap.add_argument("--cells", default="",
+                    help="comma-separated arch:shape cells, counted in this order (in place "
+                         "of --arch / --shape)")
     args = ap.parse_args(argv)
 
     cells = all_cells()
+    if args.cells:
+        known = set(cells)
+        cells = [tuple(c.split(":")) for c in args.cells.split(",")]
+        unknown = [c for c in cells if c not in known]
+        if unknown:
+            ap.error(f"no such cells: {unknown}")
     if args.arch:
         cells = [c for c in cells if c[0] == args.arch]
     if args.shape:

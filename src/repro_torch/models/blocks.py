@@ -215,11 +215,14 @@ def _decode_cache_update(cfg, ctx: Ctx, layer_type: str, cache: dict, k1, v1):
                             "own shard in place")
         mesh, rules = rules_ctx
         # the new token's k / v, the lengths and the mask follow the cache's
-        # own layout (its KV heads lose "model" where "seq" took it)
+        # own layout (its KV heads lose "model" where "seq" took it); a
+        # ring's positions keep theirs, whole along the sequence (written
+        # in place, so the next step reads them)
         c_spec = rules.spec(cache["k"].shape, ("batch", "seq", "kv_heads", None))
         kv_spec, b_spec = P(c_spec[0], c_spec[2], None), P(c_spec[0])
         row_spec = P(c_spec[0], c_spec[1])
-        in_specs = (kv_spec, kv_spec, b_spec, c_spec, c_spec) + ((row_spec,) if ring else ())
+        in_specs = (kv_spec, kv_spec, b_spec, c_spec, c_spec) + (
+            (rules.spec(cache["pos"].shape, ("batch", None)),) if ring else ())
         valid = shard_map(
             lambda *a: _cache_write(ctx, ring, Sc, (mesh, _as_tuple(c_spec[1])), *a), mesh,
             in_specs, row_spec)(k1, v1, ctx.lengths, *leaves)
@@ -232,7 +235,8 @@ def _decode_cache_update(cfg, ctx: Ctx, layer_type: str, cache: dict, k1, v1):
 def _cache_write(ctx: Ctx, ring: bool, Sc: int, seq, k1, v1, pos, ck, cv, cpos=None):
     """The decode write into (a shard of) a cache; returns the validity mask
     [B, S] of the slots held.  ``seq`` is (mesh, axes) when the tensors are
-    one rank's shards, the sequence dim split over ``axes``."""
+    one rank's shards, the sequence dim split over ``axes``; a ring's
+    positions ``cpos`` are whole along the sequence on every rank."""
     B, Sl = ck.shape[0], ck.shape[1]
     off = 0
     if seq is not None and seq[1]:
@@ -241,7 +245,8 @@ def _cache_write(ctx: Ctx, ring: bool, Sc: int, seq, k1, v1, pos, ck, cv, cpos=N
     pos = pos.long()
     if ring:
         n_meta, W = ctx.n_meta, ctx.window
-        slot = torch.where(pos < n_meta, pos, n_meta + (pos - n_meta) % W) - off
+        ring_slot = torch.where(pos < n_meta, pos, n_meta + (pos - n_meta) % W)
+        slot = ring_slot - off
     else:
         slot = torch.where(pos < Sc, pos, torch.full_like(pos, -1)) - off
     # a write that falls outside the slots held rewrites a row with what it holds
@@ -250,10 +255,11 @@ def _cache_write(ctx: Ctx, ring: bool, Sc: int, seq, k1, v1, pos, ck, cv, cpos=N
     ck[bidx, at] = torch.where(inside[:, None, None], k1.to(ck.dtype), ck[bidx, at])
     cv[bidx, at] = torch.where(inside[:, None, None], v1.to(cv.dtype), cv[bidx, at])
     if ring:
-        cpos[bidx, at] = torch.where(inside, pos.to(cpos.dtype), cpos[bidx, at])
-        in_window = (pos[:, None] - cpos) < W
-        is_meta = (cpos >= 0) & (cpos < n_meta)
-        return (cpos >= 0) & (cpos <= pos[:, None]) & (in_window | is_meta)
+        cpos[bidx, ring_slot] = pos.to(cpos.dtype)
+        held = cpos[:, off:off + Sl]
+        in_window = (pos[:, None] - held) < W
+        is_meta = (held >= 0) & (held < n_meta)
+        return (held >= 0) & (held <= pos[:, None]) & (in_window | is_meta)
     return (off + torch.arange(Sl, device=ck.device))[None] <= pos[:, None]
 
 

@@ -318,7 +318,7 @@ def _kv_heads_of(h0: int, n_local: int, H: int, KV: int, device) -> torch.Tensor
     return idx
 
 
-def _per_rank(run, whole, q, k, v):
+def _per_rank(run, whole, q, k, v, seq_run=None):
     """``run(q, k, v)`` per rank on its local (batch x head) shard when a
     rules context is active, else on the tensors as they are.
 
@@ -328,7 +328,11 @@ def _per_rank(run, whole, q, k, v):
     (``_kv_heads_of``).  (The reference passes the replicated KV through,
     and its flash kernel then pairs local query head j with KV head j //
     (H_local / KV), the wrong one; where H_local < KV that group size is
-    0.)  Any other split: ``whole(q, k, v)``."""
+    0.)  No head split while the rules give "seq" an axis (the cells whose
+    KV heads do not divide the model axis): with ``seq_run(q, k, v,
+    offset)``, the attention of the query rows from ``offset`` on, the
+    query rows are split over that axis (``_seq_split``).  Any other
+    split: ``whole(q, k, v)``."""
     ctx = _current()
     if ctx is None:
         return run(q, k, v)
@@ -337,6 +341,10 @@ def _per_rank(run, whole, q, k, v):
     kv_spec = rules.spec(k.shape, ("batch", None, "kv_heads", None))
     h_shard = rules.axis_size(q_spec[2])
     kv_shard = rules.axis_size(kv_spec[2])
+    if seq_run is not None and h_shard == kv_shard == 1:
+        axis = _seq_axis(rules, q_spec, q.shape[1])
+        if axis is not None:
+            return _seq_split(seq_run, mesh, axis, q_spec, kv_spec, q, k, v)
     if kv_shard not in (1, h_shard):
         return whole(q, k, v)
     if kv_shard == h_shard:
@@ -352,11 +360,74 @@ def _per_rank(run, whole, q, k, v):
     return shard_map(local, mesh, (q_spec, kv_spec, kv_spec), q_spec)(q, k, v)
 
 
+def _seq_axis(rules, q_spec, S: int):
+    """The one mesh axis the rules give "seq", when it is not a batch axis
+    and 2 x its size divides the S query rows; else None."""
+    axes = _as_tuple(rules.table.get("seq"))
+    if len(axes) != 1 or axes[0] in _as_tuple(q_spec[0]):
+        return None
+    n = rules.axis_size(axes)
+    return axes[0] if n > 1 and S % (2 * n) == 0 else None
+
+
+def _seq_split(seq_run, mesh, axis, q_spec, kv_spec, q, k, v):
+    """The attention with its query rows split over mesh ``axis`` of n
+    ranks, K and V whole on each: the rows are cut into 2n chunks and
+    rank r takes chunks r and 2n - 1 - r, so that under a causal mask
+    every rank skips as many key blocks as any other (a contiguous split
+    would leave rank 0 a sliver of the work and the last rank nearly
+    twice its share).  XLA splits the reference's chunked attention
+    there as evenly, each query block's rows over the axis.  The chunks
+    are gathered back into the whole sequence on every rank, where the
+    heads are replicated anyway."""
+    n = mesh.size(list(mesh.mesh_dim_names).index(axis))
+    c = q.shape[1] // (2 * n)
+    group = mesh.get_group(axis)
+
+    def local(q_l, k_l, v_l):
+        r = axis_index(mesh, axis)
+        parts = [seq_run(q_l[:, a:a + c], k_l, v_l, a) for a in (r * c, (2 * n - 1 - r) * c)]
+        return _GatherZigzag.apply(torch.cat(parts, dim=1), r, n, group)
+
+    return shard_map(local, mesh, (q_spec, kv_spec, kv_spec), q_spec, reduces=(axis,))(q, k, v)
+
+
+class _GatherZigzag(torch.autograd.Function):
+    """Rank r's two chunks of rows [B, 2c, ...] (chunks r and 2n - 1 - r of
+    2n) gathered from the n ranks of ``group`` into the whole [B, 2nc,
+    ...]; the backward takes rank r's two chunks of the (whole) cotangent."""
+
+    @staticmethod
+    def forward(ctx, mine, r: int, n: int, group):
+        import torch.distributed as dist
+
+        ctx.r, ctx.n = r, n
+        rows = mine.movedim(1, 0).contiguous()  # [2c, B, ...]: gathered along dim 0
+        c = rows.shape[0] // 2
+        out = rows.new_empty((n * 2 * c,) + rows.shape[1:])
+        dist.all_gather_into_tensor(out, rows, group=group)
+        out = out.view((n, 2, c) + rows.shape[1:])
+        # rank j's first chunk is chunk j, its second chunk 2n - 1 - j
+        chunks = torch.cat([out[:, 0], out[:, 1].flip(0)], dim=0)
+        return chunks.reshape((2 * n * c,) + rows.shape[1:]).movedim(0, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.r, ctx.n
+        c = g.shape[1] // (2 * n)
+        mine = torch.cat([g[:, r * c:(r + 1) * c], g[:, (2 * n - 1 - r) * c:(2 * n - r) * c]],
+                         dim=1)
+        return mine, None, None, None
+
+
 def _flash_call(q, k, v, causal, window, n_meta, q_offset=0):
     """The flash kernel forward with the reference backward
     (``_FlashRefBwd``), per rank (``_per_rank``); a split it cannot run
     per rank takes the direct call on the whole tensors, as the reference
-    does."""
+    does.  Where the rules split "seq" instead of the heads, each rank runs
+    every query row of its batch shard, as the reference's kernel does: the
+    kernel's causal mask counts query rows from 0 (it takes no offset), so
+    a rank cannot run a slice of them."""
     def run(q, k, v):
         return _FlashRefBwd.apply(q, k, v, causal, window, n_meta, q_offset)
 
@@ -408,7 +479,15 @@ def attention_trainable(q, k, v, *, causal: bool = True, window: int = 0, n_meta
         return attention(q, k, v, causal=causal, window=window, n_meta=n_meta,
                          q_offset=q_offset)
 
-    return _per_rank(run, run, q, k, v)
+    def rows(q, k, v, offset):
+        # the query rows from ``offset`` on; under a causal mask the keys
+        # past the last of them are masked, and cut off
+        if causal:
+            k, v = k[:, :q_offset + offset + q.shape[1]], v[:, :q_offset + offset + q.shape[1]]
+        return attention(q, k, v, causal=causal, window=window, n_meta=n_meta,
+                         q_offset=q_offset + offset)
+
+    return _per_rank(run, run, q, k, v, seq_run=rows)
 
 
 # --------------------------------------------------------------------------- qkv projection helpers

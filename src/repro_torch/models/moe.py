@@ -53,7 +53,10 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor,
                 cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [T, D] -> (weights [T, k] f32, idx [T, k] int64, aux loss f32 scalar)."""
     logits = x.float() @ w_router.float()  # [T, E]
-    probs = torch.softmax(logits, dim=-1)
+    # laid out by token, and so is its cotangent: the aux loss's mean over
+    # tokens sends back a replicated one, and the softmax's and router's
+    # backward would then run on every token on every rank
+    probs = ann(torch.softmax(logits, dim=-1), "batch", None)
     weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, idx = weights[:, :cfg.top_k], idx[:, :cfg.top_k]
     if cfg.top_k > 1:
@@ -93,11 +96,12 @@ def _moe_dense(xt: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor, p: di
 
 
 def _dispatch(xt, weights, idx, w1, w3, w2, cfg: MoEConfig, act: str, T: int, r: int = 0,
-              n_tok: int = 1, e0: int = 0, tok_sum=None) -> torch.Tensor:
+              n_tok: int = 1, e0: int = 0, tok_sum=None, fsdp=None) -> torch.Tensor:
     """The dispatch of this rank's share of the tokens (share ``r`` of
     ``n_tok``: ``xt`` [T / n_tok, D]) through its experts e0 ..
-    e0 + w1.shape[0] - 1, with the routing of all T tokens (``weights``,
-    ``idx`` [T, k]).  Tokens go into per-expert buckets [E, cap, D], each
+    e0 + w1.shape[0] - 1, with the routing of all T tokens (``idx`` [T,
+    k]) and the router weights of this share's (``weights`` [T / n_tok,
+    k]).  Tokens go into per-expert buckets [E, cap, D], each
     expert's FFN runs as one batched product, and the results come back
     weighted by the router, added in order k = 0 .. k-1.  A bucket row
     takes its token by a gather (a kept assignment has a row of its own;
@@ -105,8 +109,13 @@ def _dispatch(xt, weights, idx, w1, w3, w2, cfg: MoEConfig, act: str, T: int, r:
     copy of the tokens.  ``tok_sum`` (mesh, axes): the other shares of
     the tokens are on those axes, whose sum completes the buckets; the
     experts then run alike on each of them, and each takes its share of
-    the weight gradients' rows (``_BmmRowShare``).  Returns [T / n_tok,
-    D], partial over the experts of other ranks."""
+    the weight gradients' rows (``_BmmRowShare``).  ``fsdp`` (mesh, axes):
+    w1 and w3 hold this rank's block of d_model's rows over those axes
+    (FSDP): the buckets are cut to the same columns (``_SplitLast``: a
+    reduce-scatter over the token axes among them), the partial products
+    summed over the axes before the activation, and w1 / w3 take their
+    gradients over every bucket row.  Returns [T / n_tok, D], partial over
+    the experts of other ranks."""
     t_local, D = xt.shape
     k, e_local = cfg.top_k, w1.shape[0]
     flat_e, pos_c, keep, src_tok, cap = dispatch_plan(idx, cfg, T)
@@ -122,12 +131,29 @@ def _dispatch(xt, weights, idx, w1, w3, w2, cfg: MoEConfig, act: str, T: int, r:
     x_pad = torch.cat([xt, xt.new_zeros((1, D))])
     buckets = x_pad[src_of_row[:spare]].view(e_local, cap, D)
     share = (cap * r // n_tok, cap * (r + 1) // n_tok)
-    if tok_sum is not None:
-        buckets = all_reduce_sum(buckets, *tok_sum)
+    tok_axes = tok_sum[1] if tok_sum is not None else ()
+    if fsdp is not None:
+        mesh, d_axes = fsdp
+        rest = tuple(a for a in tok_axes if a not in d_axes)
+        if rest:
+            buckets = all_reduce_sum(buckets, mesh, rest)
+        cols = _SplitLast.apply(buckets, mesh, d_axes, tuple(a for a in d_axes if a in tok_axes))
 
-    fn = _act(act)
-    hh = fn(_BmmRowShare.apply(buckets, w1, *share)) * _BmmRowShare.apply(buckets, w3, *share)
-    o = _BmmRowShare.apply(hh, w2, *share)  # [e_local, cap, D]
+        # the partial products over this rank's columns, summed
+        h1 = all_reduce_sum(torch.bmm(cols, w1), mesh, d_axes)
+        h3 = all_reduce_sum(torch.bmm(cols, w3), mesh, d_axes)
+    else:
+        if tok_sum is not None:
+            buckets = all_reduce_sum(buckets, *tok_sum)
+        h1 = _BmmRowShare.apply(buckets, w1, *share)
+        h3 = _BmmRowShare.apply(buckets, w3, *share)
+
+    hh = _act(act)(h1) * h3
+    # with FSDP the w2 product's input gradient, too, is taken over this
+    # rank's share of the rows, and the shares gathered (as XLA splits it)
+    shares = ((n_tok, [fsdp[0].get_group(a) for a in tok_axes])
+              if fsdp is not None and n_tok > 1 else None)
+    o = _BmmRowShare.apply(hh, w2, *share, shares)  # [e_local, cap, D]
     if tok_sum is not None:  # every share's cotangent of the common buckets, summed
         mesh, axes = tok_sum
         o = _SumGradOver.apply(o, [mesh.get_group(a) for a in axes])
@@ -135,7 +161,7 @@ def _dispatch(xt, weights, idx, w1, w3, w2, cfg: MoEConfig, act: str, T: int, r:
     a = slice(r * t_local * k, (r + 1) * t_local * k)  # this share's assignments
     gathered = o.reshape(spare, D)[row[a].clamp(max=spare - 1)]
     gathered = torch.where(mine[a, None], gathered, torch.zeros_like(gathered))
-    terms = (gathered * weights.reshape(-1, 1)[a].to(gathered.dtype)).view(t_local, k, D)
+    terms = (gathered * weights.reshape(-1, 1).to(gathered.dtype)).view(t_local, k, D)
     y = torch.zeros_like(xt)
     for j in range(k):  # the reference's scatter-add order, in the model's dtype
         y = y + terms[:, j]
@@ -146,22 +172,25 @@ def _moe_dense_per_rank(xt, weights, idx, p, cfg: MoEConfig, act, mesh, rules) -
     """The dense dispatch in a ``shard_map``, laid out as the reference's
     GSPMD run lays it out: tokens over the data axes, experts over "model",
     each expert's bucket whole on every data rank.  The plan (one cumsum
-    over all T * k assignments) needs the routing whole: ``idx`` and
-    ``weights`` are gathered, the tokens are not.  Each rank runs
+    over all T * k assignments) needs the expert choices whole: ``idx``
+    is gathered; the router weights and the tokens are not (a rank's
+    share of the router's backward stays its own tokens').  Each rank runs
     ``_dispatch`` on its tokens and experts, and one sum over the expert
     (and expert-FF) axes completes its tokens' outputs.  The experts'
     weight gradients are left a partial sum over the data axes, as XLA
-    splits them."""
+    splits them.  Where the rules give "fsdp" axes (llama4-maverick's
+    cells), w1 and w3 keep their FSDP shard of d_model and contract over
+    it, a 1/n share of the product a rank, as XLA contracts them; w2's
+    shard is gathered at the boundary and its product runs whole, as in
+    the reference."""
     names = list(mesh.mesh_dim_names)
     E, T = cfg.num_experts, xt.shape[0]
     tok_spec = rules.spec(xt.shape, ("batch", None))
     w1_spec = rules.spec(p["w1"].shape[-3:], ("expert", "fsdp", "expert_ff"))
     w2_spec = rules.spec(p["w2"].shape[-3:], ("expert", "expert_ff", "fsdp"))
-    # the products contract the whole d_model: an FSDP shard on D is
-    # gathered at the shard_map's boundary
-    w1_spec = P(w1_spec[0], None, w1_spec[2])
     w2_spec = P(w2_spec[0], w2_spec[1], None)
     e_axes, ff_axes = _as_tuple(w1_spec[0]), _as_tuple(w1_spec[2])
+    d_axes = _as_tuple(w1_spec[1])
     tok_axes = _as_tuple(tok_spec[0])
     if set(tok_axes) & (set(e_axes) | set(ff_axes)):
         tok_spec, tok_axes = P(None, None), ()
@@ -172,38 +201,102 @@ def _moe_dense_per_rank(xt, weights, idx, p, cfg: MoEConfig, act, mesh, rules) -
     n_tok, red = ways(tok_axes), e_axes + ff_axes
     e_local = E // ways(e_axes)
 
-    def local_fn(xt_l, weights_w, idx_w, w1, w3, w2):
-        y = _dispatch(xt_l, weights_w, idx_w, w1, w3, w2, cfg, act, T,
+    def local_fn(xt_l, weights_l, idx_w, w1, w3, w2):
+        y = _dispatch(xt_l, weights_l, idx_w, w1, w3, w2, cfg, act, T,
                       r=axis_index(mesh, tok_axes) if tok_axes else 0, n_tok=n_tok,
                       e0=axis_index(mesh, e_axes) * e_local if e_axes else 0,
-                      tok_sum=(mesh, tok_axes) if n_tok > 1 else None)
+                      tok_sum=(mesh, tok_axes) if n_tok > 1 else None,
+                      fsdp=(mesh, d_axes) if d_axes else None)
         return all_reduce_sum(y, mesh, red) if ways(red) > 1 else y
 
-    whole = P(None, None)
-    return shard_map(local_fn, mesh, (tok_spec, whole, whole, w1_spec, w1_spec, w2_spec),
+    return shard_map(local_fn, mesh, (tok_spec, tok_spec, P(None, None), w1_spec, w1_spec,
+                                      w2_spec),
                      tok_spec, reduces=red)(xt, weights, idx, p["w1"], p["w3"], p["w2"])
+
+
+class _SplitLast(torch.autograd.Function):
+    """This rank's block of the last dim of ``x``, cut over mesh ``axes``
+    (major first, as a dim sharded over several axes is): over an axis in
+    ``summed`` the ranks hold parts of a sum, which is reduce-scattered;
+    over the others they hold the same tensor, which is sliced.  The
+    backward gathers the blocks of the cotangent, minor axis first."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, summed):
+        import torch.distributed as dist
+
+        names = list(mesh.mesh_dim_names)
+        ctx.groups = [mesh.get_group(a) for a in axes]
+        for a, grp in zip(axes, ctx.groups):
+            w = x.shape[-1] // mesh.size(names.index(a))
+            if a in summed:
+                t = x.movedim(-1, 0).contiguous()
+                out = t.new_empty((w,) + t.shape[1:])
+                dist.reduce_scatter_tensor(out, t, group=grp)
+                x = out.movedim(0, -1)
+            else:
+                i = mesh.get_local_rank(a)
+                x = x[..., i * w:(i + 1) * w]
+        return x.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        for grp in reversed(ctx.groups):
+            t = g.movedim(-1, 0).contiguous()
+            out = t.new_empty((dist.get_world_size(grp) * t.shape[0],) + t.shape[1:])
+            dist.all_gather_into_tensor(out, t, group=grp)
+            g = out.movedim(0, -1)
+        return g.contiguous(), None, None, None
 
 
 class _BmmRowShare(torch.autograd.Function):
     """``torch.bmm(a, w)``; the backward takes w's gradient over rows lo:hi
     of a only (this rank's share of rows that every rank holds alike, with
     a cotangent that every rank holds alike): a partial sum, which the
-    ranks' shares complete.  With the whole range it is autograd's own
+    ranks' shares complete.  With ``shares`` (n, process groups, major
+    first), a's gradient too is taken over rows lo:hi only (share r =
+    cap * r // n .. cap * (r + 1) // n of the cap rows) and gathered from
+    the n ranks of the groups.  With the whole range it is autograd's own
     backward of ``bmm``."""
 
     @staticmethod
-    def forward(ctx, a, w, lo: int, hi: int):
+    def forward(ctx, a, w, lo: int, hi: int, shares=None):
         ctx.save_for_backward(a, w)
-        ctx.rows = (lo, hi)
+        ctx.rows, ctx.shares = (lo, hi), shares
         return torch.bmm(a, w)
 
     @staticmethod
     def backward(ctx, g):
         a, w = ctx.saved_tensors
         lo, hi = ctx.rows
-        ga = g.bmm(w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
-        gw = a[:, lo:hi].transpose(1, 2).bmm(g[:, lo:hi]) if ctx.needs_input_grad[1] else None
-        return ga, gw, None, None
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            if ctx.shares is None:
+                ga = g.bmm(w.transpose(1, 2))
+            else:
+                ga = _gather_shares(g[:, lo:hi].bmm(w.transpose(1, 2)), g.shape[1], *ctx.shares)
+        if ctx.needs_input_grad[1]:
+            gw = a[:, lo:hi].transpose(1, 2).bmm(g[:, lo:hi])
+        return ga, gw, None, None, None
+
+
+def _gather_shares(t: torch.Tensor, cap: int, n: int, groups) -> torch.Tensor:
+    """Each rank's share of the cap rows (dim 1) of a [E, cap, F] tensor,
+    share r = rows cap * r // n .. cap * (r + 1) // n on the rank whose
+    index over ``groups`` (major first) is r, gathered into all cap rows
+    on every rank."""
+    import torch.distributed as dist
+
+    per = -(-cap // n)
+    rows = F.pad(t, (0, 0, 0, per - t.shape[1])).movedim(1, 0).contiguous()
+    for grp in reversed(groups):  # minor axis first: the blocks land major first
+        out = rows.new_empty((dist.get_world_size(grp) * rows.shape[0],) + rows.shape[1:])
+        dist.all_gather_into_tensor(out, rows, group=grp)
+        rows = out
+    keep = [j * per + i for j in range(n) for i in range(cap * (j + 1) // n - cap * j // n)]
+    return rows[torch.tensor(keep, device=rows.device)].movedim(0, 1)
 
 
 def moe_block(x: torch.Tensor, p: dict, cfg: MoEConfig, act: str = "silu",

@@ -18,7 +18,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.distributed.annotate import _current, ann, axis_index, shard_map, unflatten
+from repro_torch.distributed.annotate import (
+    _current,
+    all_reduce_sum,
+    ann,
+    axis_index,
+    shard_map,
+    unflatten,
+)
 from repro_torch.distributed.sharding import P, _as_tuple
 from repro_torch.models.layers import _kv_heads_of, _summed, rms_norm
 
@@ -138,17 +145,56 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _in_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _idle_axes(x: torch.Tensor, w: torch.Tensor, di: int) -> Tuple[str, ...]:
+    """Under a rules context, the data axes a batch that does not divide
+    them leaves idle (a batch of one), where the rules shard the input
+    projection ``w``'s columns and d_inner divides the idle axes times the
+    "dinner" axes, and d_model the idle axes: the d_inner projections then
+    contract over them too, as XLA spreads them over every device
+    (mamba2-370m at batch 1).  Else () (hymba's 6482 columns do not divide
+    16, nor its d_inner 256 devices, and XLA keeps its projections on
+    "model")."""
+    ctx = _current()
+    if ctx is None:
+        return ()
+    rules = ctx[1]
+    if rules.spec(x.shape[:1], ("batch",))[0] is not None:
+        return ()
+    idle = tuple(a for a in _as_tuple(rules.table.get("batch"))
+                 if a not in _as_tuple(rules.table.get("dinner")))
+    n = rules.axis_size(idle)
+    if (n <= 1 or rules.spec(w.shape, (None, "dinner"))[1] is None
+            or di % (n * rules.axis_size(rules.table.get("dinner"))) or w.shape[0] % n):
+        return ()
+    return idle
+
+
+def _in_proj(x: torch.Tensor, w: torch.Tensor, idle: Tuple[str, ...] = ()) -> torch.Tensor:
     """``x @ w`` for the input projection [D, 2 d_inner + 2 G N + H].
     Where the rules shard its columns, DTensor's column-parallel product;
     where the width does not divide the "dinner" axis (hymba: 6482 at tp
     16) the rules leave the weight whole, and each rank computes a ragged
     share of the columns and gathers the rest (XLA's padded split of the
-    same product in the reference), not every column on every rank."""
+    same product in the reference), not every column on every rank.  Over
+    ``idle`` axes (``_idle_axes``) each rank contracts its block of D on
+    its columns and the partial products are summed (XLA's split of the
+    same product)."""
     ctx = _current()
     if ctx is None:
         return x @ w
     mesh, rules = ctx
+    x_spec = rules.spec(x.shape, ("batch",) + (None,) * (x.ndim - 1))
+    if idle:
+        w_spec = rules.spec(w.shape, (None, "dinner"))
+        n_d = rules.axis_size(idle)
+
+        def contract(x_l, w_l):
+            d, r = x_l.shape[-1] // n_d, axis_index(mesh, idle)
+            return all_reduce_sum(x_l[..., r * d:(r + 1) * d] @ w_l[r * d:(r + 1) * d], mesh,
+                                  idle)
+
+        return shard_map(contract, mesh, (x_spec, w_spec), P(*x_spec[:-1], w_spec[1]),
+                         reduces=idle)(x, w)
     axes = _as_tuple(rules.table.get("dinner"))
     if rules.spec(w.shape, (None, "dinner"))[1] is not None or len(axes) != 1:
         return x @ w
@@ -156,7 +202,6 @@ def _in_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if n <= 1:
         return x @ w
     per = -(-C // n)
-    x_spec = rules.spec(x.shape, ("batch",) + (None,) * (x.ndim - 1))
     group = mesh.get_group(axes[0])
 
     def local(x_l, w_l):
@@ -165,6 +210,26 @@ def _in_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return _GatherColumns.apply(x_l @ w_l[:, lo:hi], per, C, lo, group)
 
     return shard_map(local, mesh, (x_spec, P(None, None)), x_spec, reduces=axes)(x, w)
+
+
+def _out_proj(y: torch.Tensor, w: torch.Tensor, idle: Tuple[str, ...]) -> torch.Tensor:
+    """``y @ w`` for the output projection [d_inner, D], summed at once;
+    over ``idle`` axes each rank contracts its block of its "dinner"
+    rows, and the partial products are summed over both."""
+    if not idle:
+        return _summed(y @ w)
+    mesh, rules = _current()
+    w_spec = rules.spec(w.shape, ("dinner", None))
+    y_spec = P(*rules.spec(y.shape, ("batch",) + (None,) * (y.ndim - 1))[:-1], w_spec[0])
+    red = idle + _as_tuple(w_spec[0])
+    n_d = rules.axis_size(idle)
+
+    def local(y_l, w_l):
+        c = y_l.shape[-1] // n_d
+        r = axis_index(mesh, idle)
+        return all_reduce_sum(y_l[..., r * c:(r + 1) * c] @ w_l[r * c:(r + 1) * c], mesh, red)
+
+    return shard_map(local, mesh, (y_spec, w_spec), P(*y_spec[:-1], None), reduces=red)(y, w)
 
 
 class _GatherColumns(torch.autograd.Function):
@@ -210,8 +275,9 @@ def mamba2_mixer_with_state(x: torch.Tensor, p: dict, cfg: SSMConfig, d_model: i
     B, S, _ = x.shape
     di, H = cfg.d_inner(d_model), cfg.n_heads(d_model)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.head_dim
+    idle = _idle_axes(x, p["in_proj"], di)
 
-    z, xs, bc, dt = _split(_in_proj(x, p["in_proj"]), di, 2 * G * N)
+    z, xs, bc, dt = _split(_in_proj(x, p["in_proj"], idle), di, 2 * G * N)
     conv_in = torch.cat([xs, bc], dim=-1)  # [B, S, di + 2GN]
     conv_out = F.silu(_causal_depthwise_conv(conv_in, p["conv_w"], p["conv_b"]))
     xs, b, c = torch.split(conv_out, [di, G * N, G * N], dim=-1)
@@ -238,7 +304,7 @@ def mamba2_mixer_with_state(x: torch.Tensor, p: dict, cfg: SSMConfig, d_model: i
     # concatenations (the card's DTensor lays out F.pad's result wrongly)
     conv_state = (conv_in[:, S - K1:] if S >= K1 else
                   torch.cat([torch.zeros_like(conv_in[:, :1])] * (K1 - S) + [conv_in], dim=1))
-    return _summed(y @ p["out_proj"]), final_state, conv_state
+    return _out_proj(y, p["out_proj"], idle), final_state, conv_state
 
 
 def mamba2_decode_step(x: torch.Tensor, state: torch.Tensor, conv_state: torch.Tensor,
@@ -249,8 +315,9 @@ def mamba2_decode_step(x: torch.Tensor, state: torch.Tensor, conv_state: torch.T
     B = x.shape[0]
     di, H = cfg.d_inner(d_model), cfg.n_heads(d_model)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.head_dim
+    idle = _idle_axes(x, p["in_proj"], di)
 
-    z, xs, bc, dt = _split(_in_proj(x, p["in_proj"]), di, 2 * G * N)
+    z, xs, bc, dt = _split(_in_proj(x, p["in_proj"], idle), di, 2 * G * N)
     conv_in = torch.cat([xs, bc], dim=-1)  # [B, di + 2GN]
     window = torch.cat([conv_state, conv_in[:, None].to(conv_state.dtype)], dim=1)  # [B, K, C]
     w = p["conv_w"].float()  # [K, C]
@@ -269,7 +336,8 @@ def mamba2_decode_step(x: torch.Tensor, state: torch.Tensor, conv_state: torch.T
     y = (state * cg[:, :, None, :]).sum(-1) + p["D"].float()[None, :, None] * xh
     y = y.reshape(B, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["out_norm"], 1e-6)
-    return ann(y @ p["out_proj"], "batch", "embed"), state, window[:, 1:]
+    out = _out_proj(y, p["out_proj"], idle) if idle else ann(y @ p["out_proj"], "batch", "embed")
+    return out, state, window[:, 1:]
 
 
 # --------------------------------------------------------------------------- init

@@ -303,11 +303,13 @@ def _f32_reduced(arch, **kw):
     return dataclasses.replace(get_config(arch).reduced(), dtype="float32", **kw)
 
 
-def _plain_and_mesh(cfg, mesh, seed, *, prompts=(), train=None, kw=None):
-    """``cfg``'s model run unsharded and on ``mesh`` under its rules, with
-    the same weights: each prompt's prefill logits and REPAIR_DECODE decode
-    steps' logits, and with ``train`` (a batch) one ZeRO-1 AdamW step's
-    loss, grad norm and new parameters.  {"<run>_<what>": array}."""
+def _plain_and_mesh(cfg, mesh, seed, *, prompts=(), train=None, kw=None, overrides=None):
+    """``cfg``'s model run unsharded and on ``mesh`` under its rules (with
+    ``overrides``), with the same weights: each prompt's prefill logits and
+    REPAIR_DECODE decode steps' logits, and with ``train`` (a batch) one
+    ZeRO-1 AdamW step's loss, grad norm and new parameters.  A prompt is
+    (tokens, steps) or (batch, steps), a batch a dict of its tokens and
+    any other inputs.  {"<run>_<what>": array}."""
     from repro_torch import tree
     from repro_torch.distributed import rules_for_mesh, use_rules
     from repro_torch.distributed.params import opt_state_shardings, tree_shardings
@@ -316,7 +318,7 @@ def _plain_and_mesh(cfg, mesh, seed, *, prompts=(), train=None, kw=None):
     from repro_torch.models.api import build_model
     from repro_torch.optim.adamw import AdamW
 
-    rules = rules_for_mesh(mesh)
+    rules = rules_for_mesh(mesh, overrides)
     plain = build_model(cfg, device="cpu", **(kw or {}))
     params = plain.init(torch.Generator().manual_seed(seed))
     out = {}
@@ -331,8 +333,12 @@ def _plain_and_mesh(cfg, mesh, seed, *, prompts=(), train=None, kw=None):
 
         with ctx:
             p = laid(params)
-            for i, (tokens, steps) in enumerate(prompts):
-                cache, logits, _ = model.prefill(p, {"tokens": tokens % cfg.vocab_size}, 32)
+            for i, (batch, steps) in enumerate(prompts):
+                batch = batch if isinstance(batch, dict) else {"tokens": batch}
+                batch = dict(batch, tokens=batch["tokens"] % cfg.vocab_size)
+                S = batch["tokens"].shape[1]
+                cache, logits, _ = model.prefill(p, batch,
+                                                 max(32, -(-(S + REPAIR_DECODE) // 16) * 16))
                 got = [_np(logits)]
                 for tok in steps[:REPAIR_DECODE]:
                     logits, cache = model.decode_step(p, cache, tok % cfg.vocab_size)
@@ -444,6 +450,67 @@ REPAIRS = {"odd_heads": odd_heads, "ssm_scan": ssm_scan, "short_prompts": short_
            "moe_dense": moe_dense, "vlm_train": vlm_train}
 
 
+# --------------------------------------------------------------------------- seq split, FSDP, idle axes
+#: the prompt lengths of ``seq_prefill``: qwen2-vl's, one under the dense
+#: block's 1M scores and one whose chunks split over 2 ranks take the
+#: chunked path; hymba's and gemma3's, past their reduced window of 16
+SEQ_LENGTHS = (12, 2304)
+SEQ_WINDOWED = ("hymba-1.5b", "gemma3-1b")
+SEQ_WINDOWED_LENGTHS = (12, 60)
+
+
+def seq_prefill(inp, rank):
+    """qwen2-vl, hymba and gemma3 with 3 query heads over 1 KV head
+    (neither divides the model axis of 2) under the rule the dry run's
+    cells add there, "seq" on "model": each prompt's prefill (qwen2-vl's
+    with patch embeddings and M-RoPE positions; hymba's 4 meta tokens and
+    windows, gemma3's local and global layers) with its query rows split
+    over "model", then 3 decode steps against the sequence-sharded
+    caches."""
+    out = {}
+    steps = torch.from_numpy(inp["rep_steps"])
+    cfg = _f32_reduced("qwen2-vl-2b", num_heads=3, num_kv_heads=1)
+    prompts = [({"tokens": torch.from_numpy(inp[f"seq_tokens{S}"]),
+                 "patch_embeds": torch.from_numpy(inp["seq_patch_embeds"]),
+                 "positions_thw": torch.from_numpy(inp[f"seq_positions_thw{S}"])}, steps)
+               for S in SEQ_LENGTHS]
+    got = _plain_and_mesh(cfg, _mesh((2, 2)), 9, prompts=prompts, overrides={"seq": "model"})
+    out.update({f"qwen2-vl-2b/{k}": v for k, v in got.items()})
+    for arch in SEQ_WINDOWED:
+        cfg = _f32_reduced(arch, num_heads=3, num_kv_heads=1)
+        prompts = [(torch.from_numpy(inp[f"seq_tokens{S}"]), steps) for S in SEQ_WINDOWED_LENGTHS]
+        got = _plain_and_mesh(cfg, _mesh((2, 2)), 9, prompts=prompts, overrides={"seq": "model"})
+        out.update({f"{arch}/{k}": v for k, v in got.items()})
+    return out
+
+
+def fsdp_moe(inp, rank):
+    """llama4-maverick (4 experts over "model", top-1, a shared expert)
+    under the dry run's FSDP rule, "fsdp" on the data axis: the experts'
+    w1 and w3 contract over their shard of d_model.  A prefill, 3 decode
+    steps and a ZeRO-1 train step."""
+    cfg = _f32_reduced("llama4-maverick-400b-a17b")
+    return _plain_and_mesh(cfg, _mesh((2, 2)), 10, prompts=_prompts(inp, 12),
+                           train={"tokens": torch.from_numpy(inp["rep_train4"]) % cfg.vocab_size},
+                           kw=dict(moe_dispatch="dense"), overrides={"fsdp": ("data",)})
+
+
+def idle_ssm(inp, rank):
+    """mamba2 at batch 1, which leaves the data axis idle: the in- and
+    out-projections contract over it as well.  A prefill, 3 decode steps
+    and a train step, each of one row."""
+    cfg = _f32_reduced("mamba2-370m")
+    steps = torch.from_numpy(inp["rep_steps"])[:, :1]
+    return _plain_and_mesh(cfg, _mesh((2, 2)), 11,
+                           prompts=[(torch.from_numpy(inp["rep_tokens"][:1]), steps)],
+                           train={"tokens": torch.from_numpy(inp["rep_train4"][:1])
+                                  % cfg.vocab_size})
+
+
+#: the checks of ``test_torch_mesh_seq_fsdp.py``
+SEQ_FSDP = {"seq_prefill": seq_prefill, "fsdp_moe": fsdp_moe, "idle_ssm": idle_ssm}
+
+
 def run(rank, world, port, workdir, names):
     """One rank: every check in ``names``; rank 0 saves each one's outputs."""
     torch.set_num_threads(1)
@@ -453,7 +520,7 @@ def run(rank, world, port, workdir, names):
         inp = dict(np.load(os.path.join(workdir, "inputs.npz"), allow_pickle=False))
         inp["dir"] = np.array(workdir)
         for name in names:
-            out = {**CHECKS, **REPAIRS}[name](inp, rank)
+            out = {**CHECKS, **REPAIRS, **SEQ_FSDP}[name](inp, rank)
             if rank == 0:
                 np.savez(os.path.join(workdir, f"port_{name}.npz"), **out)
             if name == "placement":  # every rank's own shard, for the layout check
