@@ -5,9 +5,10 @@ on the card.
         --requests 16 --slots 4 --max-new 8
 
 Serves ``cfg.reduced()`` with random weights made from ``--seed``, as the
-reference does; raises where no CUDA card is present (the CPU is reached
-only through the API: ``make_device(device="cpu")``, ``build_model(...,
-device="cpu")``).
+reference does.  It runs on the card and raises where no CUDA card is
+present; ``--device cpu`` serves on the CPU with the kernels' plain
+versions.  The prompt copies launch ``memcpy_words`` and, where a burst's
+chunks fuse, ``batch_copy_pages``.
 """
 from __future__ import annotations
 
@@ -19,11 +20,12 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import make_device
+from repro_torch.core.engine import resolve_device
 from repro_torch.models.api import build_model
 from repro_torch.serving.pipeline import Request, VhostStyleServer
 
 
-def main():
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--requests", type=int, default=16)
@@ -35,14 +37,17 @@ def main():
     ap.add_argument("--policy", default="least_loaded",
                     choices=["round_robin", "least_loaded", "sticky"])
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    ap.add_argument("--device", default=None,
+                    help="where to serve: the card by default, 'cpu' for the CPU")
+    args = ap.parse_args(argv)
 
+    dev = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
-    model = build_model(cfg, remat=False)
-    params = model.init(torch.Generator(device=model.device).manual_seed(args.seed))
+    model = build_model(cfg, remat=False, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     server = VhostStyleServer(
         model, params, slots=args.slots, max_cache_len=args.max_cache,
-        device=make_device(n_instances=args.instances, policy=args.policy),
+        device=make_device(n_instances=args.instances, policy=args.policy, device=dev),
     )
 
     rng = np.random.default_rng(args.seed)
@@ -54,7 +59,8 @@ def main():
                     max_new_tokens=args.max_new)
         )
     steps = server.run_until_drained()
-    torch.cuda.synchronize()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     m = server.metrics
     ps = server.device.policy_stats
@@ -62,10 +68,12 @@ def main():
     print(f"served {m['completed']}/{args.requests} requests in {steps} pipeline steps, "
           f"{dt:.2f}s; decoded {m['decoded_tokens']} tokens "
           f"({m['decoded_tokens']/dt:.1f} tok/s); copy bursts {m['copy_bursts']}; "
-          f"policy {ps['policy']} placements [{placed}]; on {torch.cuda.get_device_name(0)}")
+          f"policy {ps['policy']} placements [{placed}]; on "
+          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'the CPU'}")
     if m["completed"] != args.requests:
         raise SystemExit(f"only {m['completed']} of {args.requests} requests completed")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -303,7 +303,7 @@ def test_pcm_repro_render_frame(rng):
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
                            / "tools"))
     try:
-        import pcm_repro
+        import pcm_repro_torch
     finally:
         sys.path.pop(0)
     clock = FakeClock()
@@ -315,7 +315,7 @@ def test_pcm_repro_render_frame(rng):
     d.drain()
     clock.advance(1.0)
     sampler.tick()
-    text = pcm_repro.render_frame(sampler, d, numa=True, frame=1)
+    text = pcm_repro_torch.render_frame(sampler, d, numa=True, frame=1)
     assert "ENGINE" in text and "GB/s" in text
     for e in d.engines:
         assert e.name in text
