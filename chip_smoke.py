@@ -97,8 +97,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      every traced submit, the edges, the tracer's host-free fraction equal
      to WaitStats', a valid Perfetto export, the Sampler's totals equal to
      the telemetry snapshot's; a forced QueueFull closes its trace; the 4
-     KiB round trip traced and untraced, 1000 trips a policy: spin's
-     host-free share 0 and its median untraced trip below umwait's; phase
+     KiB round trip traced and untraced, 1000 trips a device, one trip of
+     each device in turn: spin's host-free share 0 and its median untraced
+     trip within 1.25 x umwait's; phase
      3d's reduced model served on a traced device, every descriptor under
      its request's ``req<id>``;
   4e. training: (i) tinyllama-1.1b at full width and depth (bf16, flash,
@@ -211,7 +212,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      events, against ``roofline.H100``'s data-sheet peaks;
   7b. tinyllama-1.1b's train step at full width and depth, 4e(i)'s 8 x
      2048 tokens, chunked attention, on the host mesh: counted by
-     ``launch/dryrun.py`` with fake tensors and again for real on the card
+     ``launch/dryrun.py`` with fake tensors (every loop trip run, as the
+     real step runs them) and again for real on the card
      under the same op counter (FLOPs and bytes equal to 1e-6, collective
      bytes 0); a warm-up and the median of 3 timed steps; its roofline
      terms, bottleneck, roofline share and MFU (against the data sheet's
@@ -219,13 +221,16 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      ``max_memory_allocated``, and the MFU of 4e(i)'s flash step;
   7c. 4d's decode step (4 slots, a 2048-token cache) counted for real and
      timed: its roofline terms against the measured step;
-  7d. ``python -m repro_torch.launch.dryrun`` for tinyllama-1.1b train_4k
-     on both meshes and for hymba-1.5b train_4k, qwen2-vl-2b train_4k and
-     mamba2-370m prefill_32k on 16x16, one process each on the host's
-     cores, after 7c, so that their host work shares no cores with a timed
-     step: every record must be ok, mamba2's within 80 GB a rank, and each
-     one's FLOPs per rank is printed beside the reference's own count
-     (``docs/dryrun_reference_counts.json``);
+  7d. ``python -m repro_torch.launch.dryrun`` (loop-aware: one trip of
+     each scanned loop, counted times its trips) for tinyllama-1.1b
+     train_4k and mamba2-370m long_500k on both meshes and for hymba-1.5b
+     and qwen2-vl-2b train_4k, mamba2-370m, qwen2-vl-2b and deepseek-67b
+     prefill_32k, deepseek-67b train_4k and llama4-maverick decode_32k on
+     16x16, one process each on the host's cores, after 7c, so that their
+     host work shares no cores with a timed step: every record must be ok,
+     mamba2's within 80 GB a rank, and each one's FLOPs per rank is
+     printed beside the reference's own count
+     (``docs/dryrun_reference_counts.json``) and held within 1.25 of it;
   5. each kernel's time at the phase 4 / 4b / 4c / 4d shapes beside its
      bound, its plain version's time and, where one PyTorch call computes
      the same function, that call's time (for flash attention
@@ -3764,8 +3769,11 @@ def _forced_queue_full(dev) -> None:
 def _round_trips(dev, n: int, policies) -> dict:
     """Host seconds of one 4 KiB copy submitted and waited for under each
     wait policy of ``policies``, on an untraced and a traced device each:
-    n trips a device, then n more in the reverse order of devices.  Per
-    policy the mean and the median of each device's 2 n trips."""
+    2 n rounds of one trip a device, the devices' order rotated every
+    round, so that a change in the host's load reaches every device alike
+    (timed a block of trips a device, medians of one policy moved by up to
+    16 % between blocks on an idle host, PERF.md section 6).  Per policy
+    the mean and the median of each device's 2 n trips."""
     from repro_torch.core import make_device
 
     devices = {(wp, name): make_device(wait_policy=wp, trace=trace, device=dev)
@@ -3773,10 +3781,11 @@ def _round_trips(dev, n: int, policies) -> dict:
     x = torch.zeros(1024, dtype=torch.int32, device=dev)
     secs = {k: [] for k in devices}
     order = list(devices)
-    for key in order + order[::-1]:
-        d = devices[key]
+    for d in devices.values():
         d.memcpy_async(x).wait()  # dsalint: disable=DSA106 — the round trip, warm-up
-        for _ in range(n):
+    for i in range(2 * n):
+        for key in order[i % len(order):] + order[:i % len(order)]:
+            d = devices[key]
             t0 = time.perf_counter()
             d.memcpy_async(x).wait()  # dsalint: disable=DSA106 — the round trip timed
             secs[key].append(time.perf_counter() - t0)
@@ -4268,11 +4277,14 @@ ROOF_DECODE_SLOTS, ROOF_DECODE_CACHE, ROOF_DECODE_STEPS = 4, 2048, 10
 #: records must also fit the card's memory.  The last three cells are the
 #: ones whose counts the mesh repairs of the sequence split (qwen2-vl's
 #: prefill), the FSDP experts (maverick) and the idle data axes (mamba2 at
-#: batch 1) brought within DRYRUN_RATIO_BOUND of the reference's.
+#: batch 1) brought within DRYRUN_RATIO_BOUND of the reference's; the
+#: deepseek-67b pair the loop-aware count reaches (its 95 scanned layers
+#: and 8 micro-steps run one trip each).
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "both"), ("hymba-1.5b", "train_4k", "single"),
                 ("qwen2-vl-2b", "train_4k", "single"), ("mamba2-370m", "prefill_32k", "single"),
                 ("mamba2-370m", "long_500k", "both"), ("qwen2-vl-2b", "prefill_32k", "single"),
-                ("llama4-maverick-400b-a17b", "decode_32k", "single"))
+                ("llama4-maverick-400b-a17b", "decode_32k", "single"),
+                ("deepseek-67b", "train_4k", "single"), ("deepseek-67b", "prefill_32k", "single"))
 DRYRUN_MUST_FIT = ("mamba2-370m",)
 #: every record's FLOPs a rank over the reference's count of the same cell
 #: (PERF.md section 2's bound)
@@ -4358,7 +4370,7 @@ def roofline_train(dev, mesh, peaks: dict, train_full: dict, card: str) -> dict:
     shape = ShapeConfig("train_8x2048", TRAIN_SEQ, TRAIN_BATCH, "train")
     t0 = time.perf_counter()
     fake, meta = dryrun.lower_cell(cfg.name, shape.name, mesh, cfg=cfg, shape=shape,
-                                   device="cuda")
+                                   device="cuda", loops="all")
     fake_s = time.perf_counter() - t0
     fake_cost, rules = fake.cost(), meta["rules"]
     base = torch.cuda.memory_allocated(dev)
@@ -4442,12 +4454,13 @@ def roofline_decode(dev, card: str) -> dict:
 
 
 @phase("7d launch/dryrun.py: tinyllama-1.1b train_4k and mamba2-370m long_500k on both "
-       "production meshes; hymba-1.5b and qwen2-vl-2b train_4k, mamba2-370m and qwen2-vl-2b "
-       "prefill_32k and llama4-maverick decode_32k on 16x16")
+       "production meshes; hymba-1.5b, qwen2-vl-2b and deepseek-67b train_4k, mamba2-370m, "
+       "qwen2-vl-2b and deepseek-67b prefill_32k and llama4-maverick decode_32k on 16x16")
 def dryrun_records(card: str) -> dict:
-    """The dry run's entry point, one process for each of DRYRUN_CELLS, all
-    at once, each in a session of its own (so that the timeout stops the
-    processes it starts for its cells).  Every record must be ok, those of
+    """The dry run's entry point (loop-aware, its default), one process for
+    each of DRYRUN_CELLS, all at once, each in a session of its own (so
+    that the timeout stops the processes it starts for its cells).  Every
+    record must be ok and say it counted loops once, those of
     DRYRUN_MUST_FIT within the card's memory; each record's FLOPs per rank
     is printed beside the reference's count of the same cell
     (DRYRUN_REFERENCE, a JSON file) and must be within DRYRUN_RATIO_BOUND
@@ -4483,11 +4496,12 @@ def dryrun_records(card: str) -> dict:
             rec = json.loads(path.read_text())
             check(rec["status"] == "ok", f"the dry run's {mesh} {arch} {shape} record: "
                   f"{rec['status']} {rec.get('reason', '')}")
+            check(rec["loops"] == "once", f"{mesh} {arch} {shape} counted loops {rec['loops']}")
             ref = reference[f"{mesh}/{arch}/{shape}"]
             got = {k: rec[k] for k in (
                 "n_chips", "flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev",
                 "compute_s", "memory_s", "collective_s", "bottleneck", "useful_flops_ratio",
-                "hbm_per_dev_gb", "fits_hbm", "compile_s")}
+                "hbm_per_dev_gb", "fits_hbm", "compile_s", "loops")}
             got.update(reference_flops_per_dev=ref["flops_per_dev"],
                        port_over_reference=rec["flops_per_dev"] / ref["flops_per_dev"])
             print(f"  {mesh} {arch} {shape}: FLOPs/rank {rec['flops_per_dev']:.4e}, the "

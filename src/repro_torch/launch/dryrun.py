@@ -16,6 +16,14 @@ runs eagerly under ``repro_torch.roofline.op_cost.OpCounter``, which sees
 the ops rank 0 runs on its shards.  Nothing touches a card, so the dry run
 runs the same in any process with torch.
 
+The count is loop-aware by default (``--loops once``), as the reference's
+HLO walk is: a loop that stands for one of the reference's ``lax.scan``s
+(a scanned layer stack, the micro-steps) runs one trip, whose ops count
+as many times as the loop has trips (``op_cost.counted_range``), so a
+95-layer model with 8 micro-steps runs one layer pass instead of 760.
+``--loops all`` runs every trip, as a step on the card does; both give the
+same FLOPs, bytes and collectives (``tests/test_torch_dryrun_loops.py``).
+
 Attention takes the chunked path, the reference's ``lower_cell`` default:
 the flash kernel is an opaque ctypes launch, which a fake tensor cannot
 feed and a count cannot see into.
@@ -164,7 +172,7 @@ def cell_step(model, shape, mesh, rules, gen, *, micro_steps=1, zero1=True, zero
 def lower_cell(arch: str, shape_name: str, mesh, *, moe_dispatch="dense", zero1=True,
                remat=True, rules_overrides=None, micro_steps=None, attn_impl="chunked",
                no_fsdp=False, tp_comm="auto", remat_group=1, zero2=False, cfg=None,
-               shape=None, device="cpu"):
+               shape=None, device="cpu", loops="once"):
     """Build one cell's step with fake tensors laid out on ``mesh`` and run
     it once under the op counter.  Returns (counter, meta): ``meta`` holds
     the cell's ``cfg``, ``shape`` and ``rules``, its ``memory`` (this rank's
@@ -172,7 +180,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, moe_dispatch="dense", zero1=
     build (``build_s``) and count (``count_s``).  ``cfg`` and ``shape``
     replace the arch's config and the named shape (a reduced config on a
     small mesh); ``device`` is where the fake tensors claim to live (the
-    mesh's device type)."""
+    mesh's device type); ``loops`` is the counter's: "once" runs one trip
+    of each scanned loop and multiplies, "all" runs every trip."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.roofline.op_cost import OpCounter
@@ -194,7 +203,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, moe_dispatch="dense", zero1=
         build_s = time.perf_counter() - t0
         arg_storages = _storages(args)
         t0 = time.perf_counter()
-        with OpCounter() as counter:
+        with OpCounter(loops=loops) as counter:
             out = step(*args)
         count_s = time.perf_counter() - t0
         out_storages = _storages(out)
@@ -232,7 +241,7 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool, save_ops: Optional[
     shape = opts.get("shape") or SHAPES_BY_NAME[shape_name]
     ok, reason = applicable(cfg, shape)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "status": "skip",
-           "reason": reason}
+           "reason": reason, "loops": opts.get("loops", "once")}
     if not ok:
         return rec
     try:
@@ -283,7 +292,8 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool, save_ops: Optional[
 def _cell_line(rec: dict) -> str:
     msg = rec.get("reason", "")
     extra = (
-        f"count={rec.get('compile_s')}s flops/dev={rec.get('flops_per_dev', 0):.3g} "
+        f"count={rec.get('compile_s')}s loops={rec.get('loops')} "
+        f"flops/dev={rec.get('flops_per_dev', 0):.3g} "
         f"coll/dev={rec.get('collective_bytes_per_dev', 0):.3g}B "
         f"hbm={rec.get('hbm_per_dev_gb', 0)}GB bottleneck={rec.get('bottleneck', '')}"
         if rec["status"] == "ok"
@@ -308,8 +318,9 @@ def _in_subprocesses(jobs, timeout, cells, meshes, args, out_dir: Path, tag: str
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
                "--shape", shape_name, "--mesh", mesh, "--out", str(out_dir),
                "--moe-dispatch", args.moe_dispatch, "--tag", args.tag,
-               "--save-ops", args.save_ops] + (["--no-zero1"] if args.no_zero1 else [])
-        rec = {"arch": arch, "shape": shape_name, "mesh": mesh}
+               "--save-ops", args.save_ops, "--loops", args.loops] + (
+                   ["--no-zero1"] if args.no_zero1 else [])
+        rec = {"arch": arch, "shape": shape_name, "mesh": mesh, "loops": args.loops}
         try:
             subprocess.run(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
                            timeout=timeout)
@@ -339,6 +350,9 @@ def main(argv=None):
     ap.add_argument("--no-zero1", action="store_true")
     ap.add_argument("--tag", default="")
     ap.add_argument("--save-ops", default="")
+    ap.add_argument("--loops", choices=["once", "all"], default="once",
+                    help="once: run one trip of each scanned loop and count it times its "
+                         "trips (the reference's HLO walk); all: run every trip")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells run side by side, each in a process of its own")
     ap.add_argument("--timeout", type=float, default=None,
@@ -374,7 +388,7 @@ def main(argv=None):
                     rec = dryrun_cell(
                         arch, shape_name, mp,
                         moe_dispatch=args.moe_dispatch, zero1=not args.no_zero1,
-                        save_ops=args.save_ops or None,
+                        save_ops=args.save_ops or None, loops=args.loops,
                     )
                     name = f"{rec['mesh']}__{arch}__{shape_name}{tag}.json"
                     (out_dir / name).write_text(json.dumps(rec, indent=1, default=str))

@@ -8,8 +8,10 @@ tokens prepended to every sequence), the JAX package's
 ``repro.models.decoder`` in PyTorch.
 
 ``build_segments`` is the reference's for every family.  The stack is a
-list of segments, walked here by Python loops: a "scan" segment holds
-homogeneous units with stacked [n, ...] parameters (a dense, MoE or SSM
+list of segments, walked here by Python loops (a "scan" segment's is an
+``op_cost.counted_range``, the reference's ``lax.scan``, of which the
+loop-aware dry run counts one trip, times the trips): a "scan" segment
+holds homogeneous units with stacked [n, ...] parameters (a dense, MoE or SSM
 layer; a gemma3 period of 5 local layers and a global one, whose locals
 stack as [n, 5, ...]; a llama4 period of a dense layer and an MoE layer,
 {"dense": [n, ...], "moe": [n, ...]}); an "unroll" segment is a list of
@@ -50,6 +52,7 @@ from repro_torch.distributed.params import tree_shardings
 from repro_torch.distributed.sharding import place
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.roofline.op_cost import counted_range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,35 +124,40 @@ _APPLY = {"dense": B.apply_dense, "moe": B.apply_moe, "ssm": B.apply_ssm,
           "hybrid": B.apply_hybrid}
 
 
-def _seg_layers(seg: SegmentDef, p_seg, c_seg) -> List[Tuple[Any, dict, str, Optional[dict]]]:
-    """(apply function, params, layer type, cache) of each layer of a
-    segment, in stack order; the params and caches are views of the
-    segment's tensors."""
+def _unit_layers(seg: SegmentDef, p_seg, c_seg, i: int) -> List[Tuple[Any, dict, str,
+                                                                     Optional[dict]]]:
+    """(apply function, params, layer type, cache) of each layer of unit
+    ``i`` of a segment (one layer, or a period's layers), in stack order;
+    the params and caches are views of the segment's tensors."""
     if seg.kind == "unroll":
         return [(_APPLY[seg.unit], p_seg[i], seg.layer_types[i],
-                 None if c_seg is None else c_seg[i]) for i in range(seg.n)]
+                 None if c_seg is None else c_seg[i])]
+    p_u = _layer(p_seg, i)
+    c_u = None if c_seg is None else _layer(c_seg, i)
     if seg.unit in _APPLY:
-        return [(_APPLY[seg.unit], _layer(p_seg, i), seg.layer_types[i],
-                 None if c_seg is None else _layer(c_seg, i)) for i in range(seg.n)]
-    out = []
-    for i in range(seg.n):
-        p_u = _layer(p_seg, i)
-        c_u = None if c_seg is None else _layer(c_seg, i)
-        if seg.unit == "moe_period":  # the dense layer, then the MoE layer
-            for sub, apply in (("dense", B.apply_dense), ("moe", B.apply_moe)):
-                out.append((apply, p_u[sub], "global", None if c_u is None else c_u[sub]))
-            continue
-        # gemma_period: the locals, then the global
-        for j in range(len(seg.layer_types) - 1):
-            out.append((B.apply_dense, _layer(p_u["locals"], j), "local",
-                        None if c_u is None else _layer(c_u["locals"], j)))
-        out.append((B.apply_dense, p_u["global"], "global",
-                    None if c_u is None else c_u["global"]))
+        return [(_APPLY[seg.unit], p_u, seg.layer_types[i], c_u)]
+    if seg.unit == "moe_period":  # the dense layer, then the MoE layer
+        return [(apply, p_u[sub], "global", None if c_u is None else c_u[sub])
+                for sub, apply in (("dense", B.apply_dense), ("moe", B.apply_moe))]
+    # gemma_period: the locals, then the global
+    out = [(B.apply_dense, _layer(p_u["locals"], j), "local",
+            None if c_u is None else _layer(c_u["locals"], j))
+           for j in range(len(seg.layer_types) - 1)]
+    out.append((B.apply_dense, p_u["global"], "global", None if c_u is None else c_u["global"]))
     return out
 
 
+def _carry(x: torch.Tensor) -> torch.Tensor:
+    """A scanned stack's carry laid out as between layers, at the start of
+    each trip and after the last: its gradient keeps one layout both ways,
+    as a ``lax.scan`` carry's, so each trip's backward gets and gives the
+    same (the unembed's partial sum, and a layer's input gradient where
+    DTensor leaves it partial, are summed here)."""
+    return ann(x, "batch", None, "embed")
+
+
 def _seg_cache(seg: SegmentDef, caches: List[dict]):
-    """A segment's cache from its layers' caches, in ``_seg_layers``'
+    """A segment's cache from its layers' caches, in ``_unit_layers``'
     order: a list (unroll), stacked [n, ...] (scan), a gemma3 period's
     {"locals": [n, 5, ...], "global": [n, ...]} or a llama4 period's
     {"dense": [n, ...], "moe": [n, ...]}."""
@@ -304,7 +312,6 @@ class DecoderModel:
         cache_segs = cache["segments"] if cache is not None else [None] * len(self.segments)
         new_segs = []
         for seg, p_seg, c_seg in zip(self.segments, params["segments"], cache_segs):
-            layers = _seg_layers(seg, p_seg, c_seg)
             if mode == "train":
                 def run(xx, aux, chunk):
                     for apply, p_l, lt, _ in chunk:
@@ -318,21 +325,39 @@ class DecoderModel:
                     # nested remat (group > 1) saves only every group-th
                     # residual; otherwise one checkpoint per layer
                     group = 1
-                for lo in range(0, len(layers), group):
-                    chunk = layers[lo:lo + group]
-                    if ctx.remat:
-                        x, aux_total = _ckpt.checkpoint(run, x, aux_total, chunk,
-                                                        use_reentrant=False)
-                    else:
-                        x, aux_total = run(x, aux_total, chunk)
+                loop = counted_range(seg.n // group, scan=seg.kind == "scan")
+                # every layer's views before the walk: the backward then
+                # forms a stacked parameter's gradient after its last layer,
+                # not one [n, ...] select_backward a layer while activations
+                # are live; the loop-aware count's one trip takes its own
+                units = None if loop.once else [_unit_layers(seg, p_seg, None, u)
+                                                for u in range(seg.n)]
+                for trip in loop:
+                    (x, aux_total), p_trip = loop.enter((x, aux_total), p_seg)
+                    x = _carry(x) if seg.kind == "scan" else x
+                    layers = [layer for u in range(trip * group, (trip + 1) * group)
+                              for layer in (units[u] if units is not None
+                                            else _unit_layers(seg, p_trip, None, u))]
+                    for chunk in ([layers] if group > 1 else [[layer] for layer in layers]):
+                        if ctx.remat:
+                            x, aux_total = _ckpt.checkpoint(run, x, aux_total, chunk,
+                                                            use_reentrant=False)
+                        else:
+                            x, aux_total = run(x, aux_total, chunk)
+                    x, aux_total = loop.exit(x, aux_total)
                 new_segs.append(None)
+                x = _carry(x) if seg.kind == "scan" else x
                 continue
             caches = []
-            for apply, p_l, lt, c_l in layers:
-                x, a, nc = apply(x, p_l, ctx, lt, mode, c_l)
-                aux_total = aux_total + a
-                caches.append(nc)
-            new_segs.append(_seg_cache(seg, caches) if mode == "prefill" else c_seg)
+            loop = counted_range(seg.n, scan=seg.kind == "scan")
+            for u in loop:
+                for apply, p_l, lt, c_l in _unit_layers(seg, p_seg, c_seg, u):
+                    x, a, nc = apply(x, p_l, ctx, lt, mode, c_l)
+                    aux_total = aux_total + a
+                    caches.append(nc)
+                x, aux_total = loop.exit(x, aux_total)
+            new_segs.append(_seg_cache(seg, loop.repeat(caches)) if mode == "prefill"
+                            else c_seg)
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return x, aux_total, (None if mode == "train" else {"segments": new_segs})
 

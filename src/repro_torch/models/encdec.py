@@ -28,12 +28,14 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint as _ckpt
 
+from repro_torch import tree as ttree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.distributed.annotate import ann, full, unflatten
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.models.decoder import _chunked_ce, _layer, _stack, _to, place_cache
+from repro_torch.models.decoder import _carry, _chunked_ce, _layer, _stack, _to, place_cache
+from repro_torch.roofline.op_cost import counted_range
 
 
 def _init_cross_layer(gen, cfg: ModelConfig, dtype, n: B.Stack = None) -> dict:
@@ -132,11 +134,20 @@ class EncDecModel:
         def body(xx, p_l):
             return B.apply_dense(xx, p_l, ctx, "global", "train", None)[0]
 
-        for i in range(self.cfg.encoder.num_layers):
-            p_l = _layer(params["enc_layers"], i)
-            x = (_ckpt.checkpoint(body, x, p_l, use_reentrant=False) if self.remat
-                 else body(x, p_l))
-        return L.rms_norm(x, params["enc_norm"], self.cfg.norm_eps)
+        def layer(xx, p_l):
+            return (_ckpt.checkpoint(body, xx, p_l, use_reentrant=False) if self.remat
+                    else body(xx, p_l))
+
+        # frames that need no gradient give the first layer a backward with
+        # no input gradient, unlike the others': it is counted on its own
+        first = int(torch.is_grad_enabled() and not x.requires_grad and any(
+            t.requires_grad for t in ttree.leaves(params["enc_layers"])))
+        loop = counted_range(self.cfg.encoder.num_layers, peel=first)
+        for i in loop:
+            (x,), p_trip = loop.enter((x,), params["enc_layers"])
+            x = layer(_carry(x), _layer(p_trip, i))
+            x, = loop.exit(x)
+        return L.rms_norm(_carry(x), params["enc_norm"], self.cfg.norm_eps)
 
     # ------------------------------------------------------------------ decoder stack
     def _dec_stack(self, params, x, enc_out, ctx: B.Ctx, mode: str, cache=None):
@@ -163,37 +174,46 @@ class EncDecModel:
                                         ck, cv)
                 return mlp(xx, p_l)
 
-            for i in range(cfg.num_layers):
-                p_l = _layer(params["dec_layers"], i)
-                x = (_ckpt.checkpoint(body, x, enc_out, p_l, use_reentrant=False)
-                     if ctx.remat else body(x, enc_out, p_l))
-            return x, None
+            loop = counted_range(cfg.num_layers)
+            for i in loop:
+                (x,), (p_trip, enc) = loop.enter((x,), (params["dec_layers"], enc_out))
+                p_l, x = _layer(p_trip, i), _carry(x)
+                x = (_ckpt.checkpoint(body, x, enc, p_l, use_reentrant=False)
+                     if ctx.remat else body(x, enc, p_l))
+                x, = loop.exit(x)
+            return _carry(x), None
 
         if mode == "prefill":
             caches = []
-            for i in range(cfg.num_layers):
+            loop = counted_range(cfg.num_layers)
+            for i in loop:
                 p_l = _layer(params["dec_layers"], i)
                 x, nc_self = self_attn(x, p_l, None)
                 ck, cv = _cross_kv(enc_out, p_l["xattn"], cfg)
                 x = x + _cross_attend(L.rms_norm(x, p_l["lnx"], eps), p_l["xattn"], cfg, ck, cv)
                 x = mlp(x, p_l)
                 caches.append({"self": nc_self, "cross_k": ck, "cross_v": cv})
-            return x, _stack(caches)
+                x, = loop.exit(x)
+            return x, _stack(loop.repeat(caches))
 
         if mode != "decode":
             raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
         H, hd = cfg.num_heads, cfg.head_dim
-        for i in range(cfg.num_layers):
-            p_l = _layer(params["dec_layers"], i)
-            c_l = _layer(cache, i)
-            x, _ = self_attn(x, p_l, c_l["self"])
-            xq = L.rms_norm(x, p_l["lnx"], eps)
+
+        def decode_layer(xx, p_l, c_l):
+            xx, _ = self_attn(xx, p_l, c_l["self"])
+            xq = L.rms_norm(xx, p_l["lnx"], eps)
             bsz = xq.shape[0]
             q = unflatten(xq @ p_l["xattn"]["wq"], 2, (H, hd))[:, 0]
-            valid = torch.ones(c_l["cross_k"].shape[:2], dtype=torch.bool, device=x.device)
+            valid = torch.ones(c_l["cross_k"].shape[:2], dtype=torch.bool, device=xx.device)
             o = L.decode_attention(q, c_l["cross_k"], c_l["cross_v"], valid)
-            x = x + _out_proj(o.reshape(bsz, 1, H * hd), p_l["xattn"]["wo"])
-            x = mlp(x, p_l)
+            xx = xx + _out_proj(o.reshape(bsz, 1, H * hd), p_l["xattn"]["wo"])
+            return mlp(xx, p_l)
+
+        loop = counted_range(cfg.num_layers)
+        for i in loop:
+            x = decode_layer(x, _layer(params["dec_layers"], i), _layer(cache, i))
+            x, = loop.exit(x)
         return x, cache
 
     # ------------------------------------------------------------------ train

@@ -8,6 +8,7 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.distributed.annotate import unflatten
+from repro_torch.roofline.op_cost import counted_range
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -22,7 +23,8 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 class GradAccumulator:
-    """Microbatch gradient accumulation: a loop over microbatches.
+    """Microbatch gradient accumulation: a loop over microbatches (a
+    ``counted_range``, the reference's ``lax.scan``).
 
     ``accumulate(loss_fn, params, batch, n)`` splits the leading batch dim of
     every leaf into ``n`` microbatches (a leaf named ``positions_thw`` has
@@ -65,11 +67,19 @@ class GradAccumulator:
         # zeros_like: a DTensor parameter's accumulator is laid out like it
         acc = _tree.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         loss_sum = torch.zeros(())
-        for i in range(n):
+        # the first add lays each accumulator out as its gradient (a
+        # parameter's Replicate becomes the data axes' Partial sum), the
+        # later ones add like to like: the first micro-step is counted alone
+        loop = counted_range(n, peel=1)
+        for i in loop:
             mb = _tree.unflatten(treedef, [x[i] for x in micro])
             grads, (loss, _) = grad_and_value(params, mb)
             acc = _tree.tree_map(lambda a, g: a + g.to(torch.float32), acc, grads)
             loss_sum = loss_sum + loss
+            # this micro-step's gradients are dead before the next one's
+            # backward, as in the reference's scan body
+            del grads
+            loop.exit(*_tree.leaves(acc), loss_sum)
         grads = _tree.tree_map(lambda a: a / n, acc)
         loss = loss_sum / n
         return loss, {"ce": loss, "aux": torch.zeros(())}, grads

@@ -38,6 +38,25 @@ The counter works under ``FakeTensorMode`` (the dry run: no memory) and on
 real tensors (a step on the card), with the same records for the same step.
 It also tracks the peak of live storages the step allocates
 (``peak_bytes``), for the dry run's ``temp_bytes``.
+
+Loops (the reference's trip-count walk): the model's Python loops that
+stand for the reference's ``lax.scan``s (a segment's layers, the
+encoder-decoder's layers, the micro-steps) iterate ``counted_range(n)``.
+Under ``OpCounter(loops="all")``, and with no counter, that is
+``range(n)``: every trip runs and is counted.  Under
+``OpCounter(loops="once")`` it runs one trip and every op that trip
+records counts ``n`` times, as ``hlo_cost`` multiplies a ``while`` body by
+its trip count; nested loops multiply.  The backward pays the multiplier
+too: ``counted_range.enter`` / ``exit`` put identity markers around a
+trip's carry, whose backward raises the multiplier while autograd runs
+that trip's backward (its remat replay included).  What the skipped trips
+would have left behind is made up so that the totals are the full run's:
+the one trip's per-trip outputs stand for all n (``repeat``), a stacked
+[n, ...] parameter's gradient pays the n - 1 accumulations of its layer
+views' gradients (``stacked``), and the storages a trip leaves live at
+its exit (a prefill's cache, the layer input a remat replay keeps) count
+n times for as long as they live, so ``peak_bytes`` follows the full run's
+(held to it in ``tests/test_torch_dryrun_loops.py``).
 """
 from __future__ import annotations
 
@@ -364,32 +383,82 @@ class OpCounter(TorchDispatchMode):
     ``peak_bytes`` is the largest sum of live storages the counted ops
     allocated, at any point while entered."""
 
-    def __init__(self):
+    def __init__(self, loops: str = "all"):
         super().__init__()
+        if loops not in ("all", "once"):
+            raise ValueError(f"loops must be 'all' or 'once', not {loops!r}")
+        self.loops = loops
         self.records: List[dict] = []
         self._index: Dict[str, int] = {}  # a record's JSON -> its place in records
         self.live_bytes = 0
         self.peak_bytes = 0
-        self._storages = {}  # id -> weakref of each live storage counted
+        #: id -> [weakref, bytes it counts for (its size times the trips it
+        #: stands for), allocation number] of each live storage counted
+        self._storages: Dict[int, list] = {}
+        self._allocated = 0
+        self._high = 0  # the high-water mark of live bytes in the trip being counted
+        self._mult = 1  # the product of the trip counts of the loops being counted
+        self._outer = None
+
+    def __enter__(self):
+        global _LOOPING
+        self._outer, _LOOPING = _LOOPING, (self if self.loops == "once" else None)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        global _LOOPING
+        _LOOPING = self._outer
+        return super().__exit__(*exc)
 
     def cost(self) -> Cost:
         return analyze_log(self.records)
 
-    def _freed(self, key, nbytes, _ref):
-        if self._storages.pop(key, None) is not None:
-            self.live_bytes -= nbytes
+    def _freed(self, key, _ref):
+        entry = self._storages.pop(key, None)
+        if entry is not None:
+            self.live_bytes -= entry[1]
 
     def _track(self, outs: List[torch.Tensor]) -> None:
         for t in outs:
             st = t.untyped_storage()
             key = id(st)
-            ref = self._storages.get(key)
-            if ref is not None and ref() is st:
+            entry = self._storages.get(key)
+            if entry is not None and entry[0]() is st:
                 continue
             nbytes = st.nbytes()
-            self._storages[key] = weakref.ref(st, functools.partial(self._freed, key, nbytes))
+            ref = weakref.ref(st, functools.partial(self._freed, key))
+            self._storages[key] = [ref, nbytes, self._allocated]
+            self._allocated += 1
             self.live_bytes += nbytes
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        self._high = max(self._high, self.live_bytes)
+
+    def _end_trip(self, n: int, first: int, carry_in, carry_out,
+                                 outer_high: int) -> None:
+        """At the end of a counted trip: each storage the trip allocated that
+        is still live, but for those the trip hands on to the next
+        (``carry_out``), and each storage of a carried-in value that
+        autograd keeps for the backward (``carry_in`` with requires_grad: a
+        replay's layer input), is one of n in the full run, whose last trip
+        reaches this trip's high-water mark with the other n - 1 trips'
+        live."""
+        handed_on = {id(_local(t).untyped_storage()) for t in carry_out}
+        kept = {id(st): st for st in (_local(t).untyped_storage() for t in carry_in
+                                      if t.requires_grad)}
+        left = 0
+        for key, entry in self._storages.items():
+            if (entry[2] >= first and key not in handed_on) or key in kept:
+                left += entry[1]
+                entry[1] *= n
+        for key, st in kept.items():
+            if key not in self._storages:  # allocated before the count began
+                left += st.nbytes()
+                ref = weakref.ref(st, functools.partial(self._freed, key))
+                self._storages[key] = [ref, (n - 1) * st.nbytes(), self._allocated]
+                self._allocated += 1
+        self.live_bytes += (n - 1) * left
+        self._high = max(outer_high, self._high + (n - 1) * left, self.live_bytes)
+        self.peak_bytes = max(self.peak_bytes, self._high)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -419,10 +488,184 @@ class OpCounter(TorchDispatchMode):
         at = self._index.get(key)
         if at is None:
             self._index[key] = len(self.records)
-            rec["n"] = 1
+            rec["n"] = self._mult
             self.records.append(rec)
         else:
-            self.records[at]["n"] += 1
+            self.records[at]["n"] += self._mult
         if fresh:
             self._track(outs)
         return out
+
+
+# --------------------------------------------------------------------------- counted loops
+#: the OpCounter(loops="once") entered, if any
+_LOOPING: Optional[OpCounter] = None
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+class _Mult:
+    """The counter's multiplier times ``k`` while entered."""
+
+    def __init__(self, counter: OpCounter, k: int):
+        self.counter, self.k = counter, k
+
+    def __enter__(self):
+        self.counter._mult *= self.k
+
+    def __exit__(self, *exc):
+        self.counter._mult //= self.k
+
+
+class _TripEnd(torch.autograd.Function):
+    """Identity on a trip's carry out; its backward, the first of the
+    trip's, raises the multiplier to the trip count."""
+
+    @staticmethod
+    def forward(ctx, loop, *xs):
+        ctx.loop = loop
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        loop = ctx.loop
+        loop._backward = _Mult(loop._counter, loop.n - loop.peel)
+        loop._backward.__enter__()
+        return (None,) + grads
+
+
+class _TripStart(torch.autograd.Function):
+    """Identity on a trip's carry in and on what every trip reads (the
+    stacked [n, ...] parameters whose layer views it takes, the encoder's
+    output); its backward, the last of the trip's (it waits for those
+    gradients too), lowers the multiplier again.
+
+    In the full run autograd adds the n trips' gradients of a shared
+    tensor into one: n - 1 adds (of [n, ...] for a stacked parameter, each
+    layer view's gradient being a [n, ...] ``select_backward``), of which
+    the counted trip runs ``uses_per_trip - 1`` (times its count, n - peel)
+    and a peeled trip's gradient meets the counted trip's in one add of its
+    own.  The backward counts the rest: one add of the shared tensor's
+    gradient, n - peel - 1 times."""
+
+    @staticmethod
+    def forward(ctx, loop, n_shared, *xs):
+        ctx.loop, ctx.n_shared = loop, n_shared
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        loop = ctx.loop
+        loop._backward.__exit__()
+        c = loop._counter
+        with _Mult(c, loop.n - loop.peel - 1):
+            for g in grads[len(grads) - ctx.n_shared:]:
+                if g is not None:
+                    # the full run's add meets the running sum and a new
+                    # gradient: one more live tensor of g's size meanwhile
+                    nbytes = _local(g).untyped_storage().nbytes()
+                    c.live_bytes += nbytes
+                    torch.add(g, g)
+                    c.live_bytes -= nbytes
+        return (None, None) + grads
+
+
+class counted_range:
+    """``range(n)`` for a Python loop that stands for one of the reference's
+    ``lax.scan``s, whose trips run the same ops on the same shapes::
+
+        loop = counted_range(n)
+        for i in loop:
+            (x,), p = loop.enter((x,), stacked_params)
+            ...  # trip i, on p's layer-i views
+            x, = loop.exit(x)
+        outs = loop.repeat(outs)
+
+    With no counter, or under ``OpCounter(loops="all")``, it runs every
+    trip and ``enter`` / ``exit`` / ``repeat`` hand their arguments back.
+    Under ``OpCounter(loops="once")`` it runs trip ``peel`` only, counted
+    n - peel times, after the first ``peel`` trips, each run and counted on
+    its own (trips that differ from the rest: the carry comes in with no
+    gradient, or in another layout).  ``enter`` and ``exit`` take the
+    carry into and out of the counted trip, and pass what carries a
+    gradient (with what ``enter`` is told every trip reads) through the
+    backward's markers; ``repeat`` stands the counted trip's outputs for
+    its n - peel.  ``scan=False`` makes a plain range of it (an unrolled
+    segment)."""
+
+    def __init__(self, n: int, scan: bool = True, peel: int = 0):
+        self.n, self.peel = n, peel
+        self._counter = _LOOPING if scan and n - peel > 1 else None
+        self._counting = False  # in the counted trip
+        self._carry_in: tuple = ()
+        self._carry_out: tuple = ()
+        self._backward: Optional[_Mult] = None
+
+    @property
+    def once(self) -> bool:
+        """Whether the loop runs one counted trip (a loop-aware count)."""
+        return self._counter is not None
+
+    def __iter__(self):
+        c = self._counter
+        if c is None:
+            yield from range(self.n)
+            return
+        yield from range(self.peel)
+        m = self.n - self.peel
+        high, c._high = c._high, c.live_bytes
+        first = c._allocated
+        self._counting = True
+        with _Mult(c, m):
+            yield self.peel
+        self._counting = False
+        c._end_trip(m, first, self._carry_in, self._carry_out, high)
+        self._carry_in = self._carry_out = ()  # no longer kept alive here
+
+    def _grad(self) -> bool:
+        return self._counting and torch.is_grad_enabled()
+
+    def enter(self, carry: tuple, shared=None):
+        """(carry, shared) into a trip, handed back: ``carry`` the tensors
+        the last trip handed on, ``shared`` a tree of the tensors every
+        trip reads (the stacked [n, ...] parameters whose layer views it
+        takes; None for none)."""
+        from repro_torch import tree as ttree
+
+        if self._counting:
+            self._carry_in = carry
+        if not self._grad():
+            return carry, shared
+        flat, treedef = ttree.flatten(shared)
+        marked = [x for x in carry if x.requires_grad]
+        s_marked = [x for x in flat if isinstance(x, torch.Tensor) and x.requires_grad]
+        if not marked and not s_marked:
+            return carry, shared
+        it = iter(_TripStart.apply(self, len(s_marked), *marked, *s_marked))
+        carry = tuple(next(it) if x.requires_grad else x for x in carry)
+        flat = [next(it) if isinstance(x, torch.Tensor) and x.requires_grad else x
+                for x in flat]
+        return carry, ttree.unflatten(treedef, flat)
+
+    def exit(self, *carry):
+        """The carry out of a trip (tensors), handed back."""
+        if self._counting:
+            self._carry_out = carry
+        if not self._grad() or not any(x.requires_grad for x in carry):
+            return carry
+        it = iter(_TripEnd.apply(self, *[x for x in carry if x.requires_grad]))
+        return tuple(next(it) if x.requires_grad else x for x in carry)
+
+    def repeat(self, outs: list) -> list:
+        """The trips' outputs in trip order (as many for each trip): the
+        counted trip's stand for its n - peel."""
+        if not self.once:
+            return outs
+        k = len(outs) * self.peel // (self.peel + 1)
+        return outs[:k] + outs[k:] * (self.n - self.peel)
