@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.distributed.sharding import place
+from repro_torch.obs.spans import stage
 
 
 class SyntheticLMDataset:
@@ -120,19 +121,20 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        step, (batch, ready) = self._q.get()
-        if ready is not None:
-            # the consumer's stream waits for the copies; the tensors were
-            # made on the side stream, so the allocator must not reuse
-            # them until the consumer's work on them is done
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(ready)
-            for t in batch.values():
-                t.record_stream(consumer)
-        if self.shardings is not None:
-            batch = {k: place(v, self.shardings[k]) if k in self.shardings else v
-                     for k, v in batch.items()}
-        return step, batch
+        with stage("data.next"):
+            step, (batch, ready) = self._q.get()
+            if ready is not None:
+                # the consumer's stream waits for the copies; the tensors were
+                # made on the side stream, so the allocator must not reuse
+                # them until the consumer's work on them is done
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(ready)
+                for t in batch.values():
+                    t.record_stream(consumer)
+            if self.shardings is not None:
+                batch = {k: place(v, self.shardings[k]) if k in self.shardings else v
+                         for k, v in batch.items()}
+            return step, batch
 
     def stop(self):
         self._stop.set()

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.distributed.sharding import place_like
+from repro_torch.obs.spans import stage
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.optim.gradients import GradAccumulator, clip_by_global_norm
 
@@ -29,18 +30,20 @@ def make_train_step(model, optimizer: AdamW, micro_steps: int = 1, clip_norm: fl
     old ones' layout (ZeRO-1 keeps the moments sharded across steps)."""
 
     def train_step(params, opt_state: AdamWState, batch):
-        loss, metrics, grads = GradAccumulator.accumulate(model.loss, params, batch,
-                                                          micro_steps)
-        grads = _tree.tree_map(place_like, grads,
-                               params if grad_shardings is None else grad_shardings)
-        if clip_norm > 0:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        else:
-            gnorm = torch.zeros((), device=loss.device)
-        new_params, new_state = optimizer.update(grads, opt_state, params)
-        new_params = _tree.tree_map(place_like, new_params, params)
-        new_state = _tree.tree_map(place_like, new_state, opt_state)
-        out_metrics = {"loss": loss, "grad_norm": gnorm, **metrics}
+        with stage("train.step", "train"):
+            loss, metrics, grads = GradAccumulator.accumulate(model.loss, params, batch,
+                                                              micro_steps)
+            with stage("train.optimizer", "train"):
+                grads = _tree.tree_map(place_like, grads,
+                                       params if grad_shardings is None else grad_shardings)
+                if clip_norm > 0:
+                    grads, gnorm = clip_by_global_norm(grads, clip_norm)
+                else:
+                    gnorm = torch.zeros((), device=loss.device)
+                new_params, new_state = optimizer.update(grads, opt_state, params)
+                new_params = _tree.tree_map(place_like, new_params, params)
+                new_state = _tree.tree_map(place_like, new_state, opt_state)
+            out_metrics = {"loss": loss, "grad_norm": gnorm, **metrics}
         return new_params, new_state, out_metrics
 
     return train_step

@@ -35,6 +35,7 @@ from repro_torch.distributed.sharding import P, _as_tuple
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.obs.spans import stage
 
 
 @dataclasses.dataclass
@@ -126,37 +127,39 @@ def _init_attn_cache(cfg: ModelConfig, B: int, layer_type: str, ctx: Ctx, dtype,
 
 def attn_sub(x: torch.Tensor, p: dict, ctx: Ctx, layer_type: str, mode: str,
              cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention sub-block (no residual / norm).  x [B, S, D] or [B, 1, D]."""
-    if mode not in ("train", "prefill", "decode"):
-        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
-    cfg = ctx.cfg
-    B, S, D = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
-    qk_p = {"q_norm": p["q_norm"], "k_norm": p["k_norm"]} if cfg.qk_norm else None
-    q, k, v = L.project_qkv(x, p, cfg, qk_norm_p=qk_p)
-    cos, sin = ctx.rope(layer_type)
-    q = L.apply_rope(q, cos, sin)
-    k = L.apply_rope(k, cos, sin)
+    """Self-attention sub-block (no residual / norm).  x [B, S, D] or [B, 1, D].
+    A ``model.attention`` stage span."""
+    with stage("model.attention", mode):
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
+        cfg = ctx.cfg
+        B, S, D = x.shape
+        H, hd = cfg.num_heads, cfg.head_dim
+        qk_p = {"q_norm": p["q_norm"], "k_norm": p["k_norm"]} if cfg.qk_norm else None
+        q, k, v = L.project_qkv(x, p, cfg, qk_norm_p=qk_p)
+        cos, sin = ctx.rope(layer_type)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
 
-    window = ctx.window if layer_type == "local" else 0
+        window = ctx.window if layer_type == "local" else 0
 
-    if mode in ("train", "prefill"):
-        o = L.attention_trainable(q, k, v, causal=ctx.causal, window=window,
-                                  n_meta=ctx.n_meta, impl=ctx.attn_impl)
-        new_cache = None
-        if mode == "prefill":
-            new_cache = _write_prefill_cache(cfg, ctx, layer_type, k, v)
-    else:  # decode: S == 1
-        new_cache, k_all, v_all, valid = _decode_cache_update(cfg, ctx, layer_type, cache,
-                                                              k[:, 0], v[:, 0])
-        o = L.decode_attention(q[:, 0], k_all, v_all, valid)[:, None]
-    o = ann(o, "batch", None, "heads", None)
-    # laid out as wo's rows: where the heads do not divide the model axis
-    # (and their flat width does) the gradient is gathered here, since
-    # DTensor cannot split a sharded flat width back into heads
-    o = ann(o.reshape(B, S, H * hd), "batch", None, "qkv_flat")
-    out = L.row_parallel_out(o, p["wo"], ctx.tp_comm)
-    return out, new_cache
+        if mode in ("train", "prefill"):
+            o = L.attention_trainable(q, k, v, causal=ctx.causal, window=window,
+                                      n_meta=ctx.n_meta, impl=ctx.attn_impl)
+            new_cache = None
+            if mode == "prefill":
+                new_cache = _write_prefill_cache(cfg, ctx, layer_type, k, v)
+        else:  # decode: S == 1
+            new_cache, k_all, v_all, valid = _decode_cache_update(cfg, ctx, layer_type, cache,
+                                                                  k[:, 0], v[:, 0])
+            o = L.decode_attention(q[:, 0], k_all, v_all, valid)[:, None]
+        o = ann(o, "batch", None, "heads", None)
+        # laid out as wo's rows: where the heads do not divide the model axis
+        # (and their flat width does) the gradient is gathered here, since
+        # DTensor cannot split a sharded flat width back into heads
+        o = ann(o.reshape(B, S, H * hd), "batch", None, "qkv_flat")
+        out = L.row_parallel_out(o, p["wo"], ctx.tp_comm)
+        return out, new_cache
 
 
 def _write_prefill_cache(cfg: ModelConfig, ctx: Ctx, layer_type: str, k, v) -> dict:
@@ -328,16 +331,20 @@ def apply_ssm(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
     xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "train":
-        return x + ssm_lib.mamba2_mixer(xn, p["mixer"], cfg.ssm, cfg.d_model), zero, None
+        with stage("model.ssm", mode):
+            y = ssm_lib.mamba2_mixer(xn, p["mixer"], cfg.ssm, cfg.d_model)
+        return x + y, zero, None
     if mode == "prefill":
-        y, state, conv_state = ssm_lib.mamba2_mixer_with_state(xn, p["mixer"], cfg.ssm,
-                                                               cfg.d_model)
+        with stage("model.ssm", mode):
+            y, state, conv_state = ssm_lib.mamba2_mixer_with_state(xn, p["mixer"], cfg.ssm,
+                                                                   cfg.d_model)
         return x + y, zero, {"ssm_state": state, "conv_state": conv_state}
     if mode != "decode":
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
-    y, state, conv_state = ssm_lib.mamba2_decode_step(xn[:, 0], cache["ssm_state"],
-                                                      cache["conv_state"], p["mixer"],
-                                                      cfg.ssm, cfg.d_model)
+    with stage("model.ssm", mode):
+        y, state, conv_state = ssm_lib.mamba2_decode_step(xn[:, 0], cache["ssm_state"],
+                                                          cache["conv_state"], p["mixer"],
+                                                          cfg.ssm, cfg.d_model)
     cache["ssm_state"].copy_(state)
     cache["conv_state"].copy_(conv_state)
     return x + y[:, None], zero, cache
@@ -367,17 +374,20 @@ def apply_hybrid(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
                                      cache["attn"] if cache else None)
     new_cache = None
     if mode == "train":
-        ssm_out = ssm_lib.mamba2_mixer(xn, p["mixer"], scfg, cfg.d_model)
+        with stage("model.ssm", mode):
+            ssm_out = ssm_lib.mamba2_mixer(xn, p["mixer"], scfg, cfg.d_model)
     elif mode == "prefill":
-        ssm_out, state, conv_state = ssm_lib.mamba2_mixer_with_state(xn, p["mixer"], scfg,
-                                                                     cfg.d_model)
+        with stage("model.ssm", mode):
+            ssm_out, state, conv_state = ssm_lib.mamba2_mixer_with_state(xn, p["mixer"], scfg,
+                                                                         cfg.d_model)
         new_cache = {"attn": new_a_cache,
                      "ssm": {"ssm_state": state, "conv_state": conv_state}}
     else:
         s_cache = cache["ssm"]
-        y1, state, conv_state = ssm_lib.mamba2_decode_step(
-            xn[:, 0], s_cache["ssm_state"], s_cache["conv_state"], p["mixer"], scfg,
-            cfg.d_model)
+        with stage("model.ssm", mode):
+            y1, state, conv_state = ssm_lib.mamba2_decode_step(
+                xn[:, 0], s_cache["ssm_state"], s_cache["conv_state"], p["mixer"], scfg,
+                cfg.d_model)
         s_cache["ssm_state"].copy_(state)
         s_cache["conv_state"].copy_(conv_state)
         ssm_out = y1[:, None]

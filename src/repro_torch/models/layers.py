@@ -43,6 +43,7 @@ from repro_torch.distributed.annotate import (
 )
 from repro_torch.distributed.sharding import P, _as_tuple
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.obs.spans import stage
 
 NEG_INF = _flash.NEG_INF
 
@@ -457,11 +458,13 @@ class _FlashRefBwd(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         causal, window, n_meta, q_offset = ctx.args
-        _, vjp = torch.func.vjp(
-            lambda q, k, v: attention(q, k, v, causal=causal, window=window, n_meta=n_meta,
-                                      q_offset=q_offset),
-            q, k, v)
-        return (*vjp(g), None, None, None, None)
+        # on autograd's thread: the span's parent is the open train.backward
+        with stage("model.attention", "backward"):
+            _, vjp = torch.func.vjp(
+                lambda q, k, v: attention(q, k, v, causal=causal, window=window,
+                                          n_meta=n_meta, q_offset=q_offset),
+                q, k, v)
+            return (*vjp(g), None, None, None, None)
 
 
 def attention_trainable(q, k, v, *, causal: bool = True, window: int = 0, n_meta: int = 0,

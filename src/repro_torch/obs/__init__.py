@@ -17,11 +17,29 @@ dependency edges, and WaitPolicy wait spans; ``to_perfetto`` exports the
 lot as Chrome/Perfetto trace_event JSON, and ``critical_path`` /
 ``phase_breakdown`` / ``host_free_fraction`` are the span analyzers
 (``tools/trace_view.py`` is the CLI).
+
+Stage spans name what the program itself was doing (a served request's
+admission, the decode step's launch and read, a training step's phases,
+the model's layer kinds): ``stage(name, mode, req)`` at each site records
+into ``STAGES`` while a ``torch.profiler`` session records or inside
+``recording()``, on the profiler's clock; ``to_perfetto(..., stages=STAGES.spans())``
+draws them on a track of their own.
 """
 from repro_torch.obs.export import to_csv, to_jsonl, to_perfetto
 from repro_torch.obs.sampler import Sampler
 from repro_torch.obs.series import Series, percentile
-from repro_torch.obs.spans import HOST_PHASES, PHASES, DescTrace, Span
+from repro_torch.obs.spans import (
+    HOST_PHASES,
+    NULL_STAGE,
+    PHASES,
+    STAGES,
+    DescTrace,
+    Span,
+    StageRecorder,
+    StageSpan,
+    recording,
+    stage,
+)
 from repro_torch.obs.trace import (
     TraceConfig,
     Tracer,
@@ -38,6 +56,7 @@ __all__ = [
     "Sampler", "Series", "percentile",
     "to_csv", "to_jsonl", "to_perfetto",
     "PHASES", "HOST_PHASES", "DescTrace", "Span",
+    "StageSpan", "StageRecorder", "STAGES", "NULL_STAGE", "stage", "recording",
     "Tracer", "TraceConfig", "TraceRateError", "WaitSpan", "make_tracer",
     "critical_path", "phase_breakdown", "host_free_fraction", "slowest",
 ]

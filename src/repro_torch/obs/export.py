@@ -13,7 +13,9 @@ every emitted line is strict JSON (Python's default would write bare
 loadable as-is in chrome://tracing or https://ui.perfetto.dev: one process
 track for the host plus one per engine, one thread lane per descriptor,
 complete ("X") slices per lifecycle phase, flow arrows for ``after=`` /
-``then`` dependency edges, and a host lane of WaitPolicy wait spans.
+``then`` dependency edges, and a host lane of WaitPolicy wait spans;
+with ``stages=``, the program's stage spans on a process track of their
+own, one lane per thread.
 """
 from __future__ import annotations
 
@@ -59,19 +61,24 @@ def to_jsonl(sampler, path: Optional[str] = None) -> str:
 
 
 def to_perfetto(tracer, path: Optional[str] = None, *,
-                flows: bool = True) -> str:
+                flows: bool = True, stages=None) -> str:
     """Render a Tracer's retained traces as Chrome/Perfetto trace_event
     JSON ({"traceEvents": [...]}); optionally also write to ``path``.
 
     Layout: pid 1 is the host (tid = descriptor id per lane, tid 0 holds
     the WaitPolicy wait spans); each engine that dispatched a sampled
-    descriptor gets its own pid.  Timestamps are microseconds from the
-    earliest retained mark, clamped non-negative with dur >= 0, so the
-    file always passes strict-JSON and monotonicity validation."""
-    traces = tracer.traces()
-    waits = tracer.wait_spans()
+    descriptor gets its own pid.  ``stages`` (``STAGES.spans()``, or any
+    ``StageSpan``s) adds the program's stage spans on the "stages" track,
+    a lane per thread; ``tracer`` may then be None.  Timestamps are
+    microseconds from the earliest retained mark or span, clamped
+    non-negative with dur >= 0, so the file always passes strict-JSON and
+    monotonicity validation."""
+    traces = tracer.traces() if tracer is not None else []
+    waits = tracer.wait_spans() if tracer is not None else []
+    stages = list(stages or [])
     starts = [dt.start for dt in traces if dt.marks]
     starts += [w.t0 for w in waits]
+    starts += [sp.t0 for sp in stages]
     base = min(starts, default=0.0)
 
     def us(t: float) -> float:
@@ -108,7 +115,7 @@ def to_perfetto(tracer, path: Optional[str] = None, *,
                 "tid": int(dt.desc_id),
                 "args": args,
             })
-    if flows:
+    if flows and tracer is not None:
         for parent, child, kind in tracer.edges():
             pdt, cdt = by_id.get(parent), by_id.get(child)
             if pdt is None or cdt is None:
@@ -137,6 +144,27 @@ def to_perfetto(tracer, path: Optional[str] = None, *,
                      "free_s": _json_safe(w.free_s),
                      "completions": w.completions},
         })
+    lanes: Dict[int, int] = {}
+    for sp in stages:
+        lane = lanes.setdefault(sp.thread, len(lanes) + 1)
+        args = {"sid": sp.sid, "parent": sp.parent, "ts_ns": sp.t0_ns}
+        if sp.req is not None:
+            args["trace_id"] = sp.req
+        if sp.mode is not None:
+            args["mode"] = sp.mode
+        events.append({
+            "name": sp.phase,
+            "cat": "stage",
+            "ph": "X",
+            "ts": us(sp.t0),
+            "dur": round(max(sp.t1 - sp.t0, 0.0) * 1e6, 3),
+            "pid": pid_for("stages"),
+            "tid": lane,
+            "args": args,
+        })
+    for thread, lane in lanes.items():
+        events.append({"name": "thread_name", "ph": "M", "pid": pids["stages"],
+                       "tid": lane, "args": {"name": f"thread {thread}"}})
     for track, pid in pids.items():
         events.append({"name": "process_name", "ph": "M", "pid": pid,
                        "tid": 0, "args": {"name": f"dsa-repro/{track}"}})

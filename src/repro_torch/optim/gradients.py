@@ -8,6 +8,7 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.distributed.annotate import unflatten
+from repro_torch.obs.spans import stage
 from repro_torch.roofline.op_cost import counted_range
 
 
@@ -43,8 +44,12 @@ class GradAccumulator:
             flat, treedef = _tree.flatten(params)
             leaves = [p.detach().requires_grad_(True) for p in flat]
             with torch.enable_grad():
-                loss, metrics = loss_fn(_tree.unflatten(treedef, leaves), batch)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                with stage("train.forward", "train"):
+                    loss, metrics = loss_fn(_tree.unflatten(treedef, leaves), batch)
+                # the parent of the spans autograd's thread opens: remat
+                # replays and the attention backward
+                with stage("train.backward", "backward", cross_thread=True):
+                    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
             metrics = _tree.tree_map(lambda m: m.detach(), metrics)
             return _tree.unflatten(treedef, grads), (loss.detach(), metrics)

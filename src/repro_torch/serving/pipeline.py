@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.analysis import lockcheck as _lockcheck
 from repro_torch.core import Device, OpType, QueueFull, WorkDescriptor, WQConfig
+from repro_torch.obs.spans import stage
 from repro_torch.serving.slo import DEFAULT_SLO_CLASSES, classes_by_name
 
 #: default WQ provisioning for a serving device (paper Fig. 9 + G6): a small
@@ -72,6 +73,12 @@ class Request:
     # admission copy rides the high-priority latency WQ.
     slo: str = "latency"
     arrived_at: float = dataclasses.field(default_factory=time.perf_counter)
+    # perf_counter stamps of the server's path: ``enqueue()``, the copy
+    # burst accepted, the prefill started (the queue wait is enqueued ->
+    # submitted, the copy wait submitted -> admitted)
+    enqueued_at: Optional[float] = None
+    submitted_at: Optional[float] = None
+    admitted_at: Optional[float] = None
     first_token_at: Optional[float] = None
     done_at: Optional[float] = None
     # virtual-clock stamps (open-loop runs): arrival_s comes from the
@@ -221,6 +228,7 @@ class VhostStyleServer:
         if req.home_node is None and self.topology.n_nodes > 1:
             req.home_node = self._node_rr % self.topology.n_nodes
             self._node_rr += 1
+        req.enqueued_at = time.perf_counter()
         self.queue.append(req)
 
     # ------------------------------------------------------------------ stage 1: poll + in-order commit
@@ -245,14 +253,23 @@ class VhostStyleServer:
         Runs under the request's trace context (reorder commit is part of
         the request lifecycle: any descriptor the prefill path submits
         shares the request's trace id)."""
-        with self._trace_request(req):
+        req.admitted_at = time.perf_counter()
+        if self.observer is not None:
+            self.observer.gauge("serving.request.queue_wait_us",
+                                (req.submitted_at - req.enqueued_at) * 1e6)
+            self.observer.gauge("serving.request.copy_wait_us",
+                                (req.admitted_at - req.submitted_at) * 1e6)
+        with self._trace_request(req), stage("serve.admit", "prefill", req.req_id):
             self._admit_now_inner(slot, req)
 
     def _admit_now_inner(self, slot: int, req: Request):
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int32))[None].to(self.model.device)
-        cache1, logits, _ = self.model.prefill(self.params, {"tokens": prompt}, self.max_cache_len)
+        with stage("serve.prefill", "prefill", req.req_id):
+            cache1, logits, _ = self.model.prefill(self.params, {"tokens": prompt},
+                                                   self.max_cache_len)
         # splice the single-sequence cache into the batch cache at `slot`
-        self.cache = _splice_cache(self.cache, cache1, slot)
+        with stage("serve.splice", "prefill", req.req_id):
+            self.cache = _splice_cache(self.cache, cache1, slot)
         tok = int(torch.argmax(logits[0]))
         req.output.append(tok)
         req.first_token_at = time.perf_counter()
@@ -377,6 +394,7 @@ class VhostStyleServer:
                     continue
                 self.queue.appendleft(req)
                 break
+            req.submitted_at = time.perf_counter()
             self.reorder.push(self._tag, fut, (slot, req))
             self._tag += 1
             self.metrics["copy_bursts"] += 1
@@ -385,10 +403,16 @@ class VhostStyleServer:
     def _stage_decode(self):
         if not self.active:
             return
-        next_tokens, self.cache = self._decode(self.params, self.cache, self._tokens)
+        t0 = time.perf_counter()
+        with stage("serve.decode.launch", "decode"):
+            next_tokens, self.cache = self._decode(self.params, self.cache, self._tokens)
+        if self.observer is not None:
+            self.observer.gauge("serving.stage.decode_launch_us",
+                                (time.perf_counter() - t0) * 1e6)
         self._tokens = next_tokens
         self.metrics["decoded_tokens"] += len(self.active)
-        toks = next_tokens[:, 0].tolist()  # one read of the step's tokens
+        with stage("serve.decode.read", "decode"):
+            toks = next_tokens[:, 0].tolist()  # one read of the step's tokens
         done_slots = []
         for slot, req in self.active.items():
             tok = toks[slot]
@@ -409,40 +433,44 @@ class VhostStyleServer:
 
     # ------------------------------------------------------------------ loop
     def step(self):
-        # (1) completions -> in-order admit.  With decode work in flight OR
-        # queued requests that stage 2 can still submit (a free slot
-        # exists), the pass is non-blocking (timeout=0) so compute and new
-        # copy bursts overlap the in-flight ones (G2); when neither stage
-        # can make progress, park on the head copy under the device's wait
-        # policy instead of spinning the loop.
-        can_submit = bool(self.queue) and bool(self._free_slots)
-        t0 = time.perf_counter()
-        self._stage_poll_commit(block=not self.active and not can_submit
-                                and len(self.reorder) > 0)
-        t1 = time.perf_counter()
-        self._stage_submit_copies() # (2) batch descriptors for new requests
-        t2 = time.perf_counter()
-        self._stage_decode()        # (3) compute overlapped with copies
-        t3 = time.perf_counter()
-        self.metrics["steps"] += 1
-        if self.observer is not None:
-            obs = self.observer
-            obs.gauge("serving.queue_depth", len(self.queue))
-            obs.gauge("serving.active_slots", len(self.active))
-            obs.gauge("serving.slot_occupancy", len(self.active) / self.slots)
-            obs.gauge("serving.inflight_copies", len(self.reorder))
-            obs.gauge("serving.stage.poll_us", (t1 - t0) * 1e6)
-            obs.gauge("serving.stage.submit_us", (t2 - t1) * 1e6)
-            obs.gauge("serving.stage.decode_us", (t3 - t2) * 1e6)
-            # per-SLO-class gauges: queue depth now, admitted/shed to date —
-            # the overload experiments read these next to the engine series
-            queued = Counter(r.slo for r in self.queue)
-            for name in self._slo_classes:
-                cm = self._class_metrics(name)
-                obs.gauge(f"serving.class.{name}.queue_depth",
-                          queued.get(name, 0))
-                obs.gauge(f"serving.class.{name}.admitted", cm["admitted"])
-                obs.gauge(f"serving.class.{name}.shed", cm["shed"])
+        with stage("serve.step"):
+            # (1) completions -> in-order admit.  With decode work in flight OR
+            # queued requests that stage 2 can still submit (a free slot
+            # exists), the pass is non-blocking (timeout=0) so compute and new
+            # copy bursts overlap the in-flight ones (G2); when neither stage
+            # can make progress, park on the head copy under the device's wait
+            # policy instead of spinning the loop.
+            can_submit = bool(self.queue) and bool(self._free_slots)
+            t0 = time.perf_counter()
+            with stage("serve.poll"):
+                self._stage_poll_commit(block=not self.active and not can_submit
+                                        and len(self.reorder) > 0)
+            t1 = time.perf_counter()
+            with stage("serve.submit"):
+                self._stage_submit_copies()  # (2) batch descriptors for new requests
+            t2 = time.perf_counter()
+            with stage("serve.decode", "decode"):
+                self._stage_decode()  # (3) compute overlapped with copies
+            t3 = time.perf_counter()
+            self.metrics["steps"] += 1
+            if self.observer is not None:
+                obs = self.observer
+                obs.gauge("serving.queue_depth", len(self.queue))
+                obs.gauge("serving.active_slots", len(self.active))
+                obs.gauge("serving.slot_occupancy", len(self.active) / self.slots)
+                obs.gauge("serving.inflight_copies", len(self.reorder))
+                obs.gauge("serving.stage.poll_us", (t1 - t0) * 1e6)
+                obs.gauge("serving.stage.submit_us", (t2 - t1) * 1e6)
+                obs.gauge("serving.stage.decode_us", (t3 - t2) * 1e6)
+                # per-SLO-class gauges: queue depth now, admitted/shed to date —
+                # the overload experiments read these next to the engine series
+                queued = Counter(r.slo for r in self.queue)
+                for name in self._slo_classes:
+                    cm = self._class_metrics(name)
+                    obs.gauge(f"serving.class.{name}.queue_depth",
+                              queued.get(name, 0))
+                    obs.gauge(f"serving.class.{name}.admitted", cm["admitted"])
+                    obs.gauge(f"serving.class.{name}.shed", cm["shed"])
 
     def run_until_drained(self, max_steps: int = 10_000):
         steps = 0
