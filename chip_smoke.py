@@ -306,6 +306,7 @@ COPY_CHUNK_WORDS = 32 * KiB // 4
 COPY_STAGES = 4
 SOURCE = "src/repro_torch/kernels/csrc/dsa_kernels.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 #: bytes read between two timed calls, to push the last call's data out of
 #: the 50 MB L2 (read, not written, so no dirty lines are left to evict)
 FLUSH_BYTES = 256 * MiB
@@ -412,14 +413,16 @@ SLICE2 = ("fill_words", "compare_words", "delta_record_words", "delta_apply_word
 SLICE3 = ("dualcast_words", "compare_pattern_words", "fill_verify_words", "memcpy_words",
           "copy_crc_words", "gf2_fold")
 #: slice 4 (phases 3d and 4d): serving: flash attention in every prefill, the
-#: prompt copies (memcpy, and batch copy where the chunks are equal and fuse)
-SLICE4 = ("flash_attention", "memcpy_words", "batch_copy_pages")
+#: prompt copies (memcpy, and batch copy where the chunks are equal and fuse),
+#: decode attention in every decode step
+SLICE4 = ("flash_attention", "memcpy_words", "batch_copy_pages", "decode_attention")
 
 
 def kernel_table():
     """name -> (wrapper with its ``launches`` count, file:line replaced)."""
-    from repro_torch.kernels import (batch_copy, compare, crc32, delta_apply, delta_create,
-                                     dualcast, fill, flash_attention, fused, memcpy)
+    from repro_torch.kernels import (batch_copy, compare, crc32, decode_attention, delta_apply,
+                                     delta_create, dualcast, fill, flash_attention, fused,
+                                     memcpy)
 
     return {
         "memcpy_words": (memcpy.memcpy_words, "src/repro/kernels/memcpy.py:20"),
@@ -441,6 +444,8 @@ def kernel_table():
         "fill_verify_words": (fused.fill_verify_words, "src/repro/kernels/fused.py:106"),
         "flash_attention": (flash_attention.flash_attention,
                             "src/repro/kernels/flash_attention.py:72"),
+        "decode_attention": (decode_attention.decode_attention,
+                             "none: the einsums of src/repro/models/layers.py:286"),
     }
 
 
@@ -1551,6 +1556,74 @@ def kernels_vs_plain_4(dev, gen, errs: dict) -> None:
     errs["flash_attention"] = worst
 
 
+#: phase 2f and 5e's decode shapes (B, S, H, KV, hd) and the mix their live
+#: lengths are drawn from: deepseek-moe-16b's chat and rag cells (24 slots of
+#: 3584, 16 of 3648), hymba-1.5b's ring with its 128 meta tokens, gemma3-1b's
+#: hd 256, tinyllama-1.1b's 8 query heads a KV head
+DECODE_SHAPES = (("deepseek-moe-16b chat", (24, 3584, 16, 16, 128), "chat"),
+                 ("deepseek-moe-16b rag", (16, 3648, 16, 16, 128), "rag"),
+                 ("hymba-1.5b ring", (8, 1152, 25, 5, 64), "ring"),
+                 ("gemma3-1b", (4, 2048, 4, 1, 256), "chat"),
+                 ("tinyllama-1.1b", (8, 2064, 32, 4, 64), "chat"))
+#: the kernel against its plain version on the card, both f32 from the same
+#: stored values with sums in another order (up to 3648 terms); the output
+#: in bf16 then within one bf16 rounding step (2^-8 relative) of it
+DECODE_TOL = {torch.float32: dict(atol=2e-6, rtol=2e-5),
+              torch.bfloat16: dict(atol=2e-6, rtol=2.0 ** -8 + 2e-5)}
+
+
+def decode_lengths(rng, B: int, mix: str, S: int) -> np.ndarray:
+    """Live slots of B decoding rows, a prompt and part of its output as the
+    benchmark's mixes draw them (bench/traffic/chat.json: lognormal prompts
+    of median 1020, sigma 0.9, 64-3072, outputs median 129, sigma 0.8,
+    16-512; rag.json: prompts uniform 2048-3584, outputs 16-64), clipped at
+    the cache; a ring holds all S."""
+    if mix == "ring":
+        return np.full(B, S)
+    if mix == "chat":
+        prompt = np.clip(1020 * np.exp(0.9 * rng.standard_normal(B)), 64, 3072)
+        out = np.clip(129 * np.exp(0.8 * rng.standard_normal(B)), 16, 512)
+    else:
+        prompt, out = rng.integers(2048, 3585, B), rng.integers(16, 65, B)
+    return np.minimum((prompt + rng.uniform(0, 1, B) * out).astype(np.int64) + 1, S)
+
+
+def decode_inputs(gen, dev, shape, mix: str, dtype, seed: int):
+    """q, k, v, valid_mask, n_live at one decode shape: a full cache's mask
+    below each row's length, or a ring's with its meta slots and holes."""
+    B, S, H, KV, hd = shape
+    q, k, v = flash_inputs(gen, dev, B, 1, S, H, KV, hd, dtype)
+    lengths = torch.as_tensor(decode_lengths(np.random.default_rng(seed), B, mix, S),
+                              dtype=torch.int32, device=dev)
+    valid = torch.arange(S, device=dev)[None] < lengths[:, None]
+    if mix == "ring":
+        valid &= torch.rand(B, S, generator=gen, device=dev) < 0.9
+        valid[:, :128] = True
+        return q[:, 0], k, v, valid, None
+    return q[:, 0], k, v, valid, lengths
+
+
+@phase("2f decode attention against its plain version")
+def kernels_vs_plain_5(dev, gen, errs: dict) -> None:
+    from repro_torch.kernels import decode_attention as dk
+
+    worst = 0.0
+    for i, (name, shape, mix) in enumerate(DECODE_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, valid, n_live = decode_inputs(gen, dev, shape, mix, dtype, i)
+            got = dk.decode_attention(q, k, v, valid, n_live)
+            want = dk.decode_attention_partials_plain(q, k, v, valid, n_live)[0]
+            sync(dev)
+            what = f"decode_attention {name} {tuple(shape)} {dtype}"
+            check(got.dtype == dtype and got.shape == q.shape, f"{what}: {got.dtype} {got.shape}")
+            err = float((got.float() - want).abs().max())
+            worst = max(worst, err)
+            print(f"  {what}: max |err| {err:.3e}")
+            check(torch.allclose(got.float(), want, **DECODE_TOL[dtype]),
+                  f"{what}: kernel disagrees with its plain version (max err {err})")
+    errs["decode_attention"] = worst
+
+
 # --------------------------------------------------------------------------- phases 3d and 4d
 def sync(dev) -> None:
     if torch.device(dev).type == "cuda":
@@ -1867,6 +1940,9 @@ def serve_full(dev, cfg, *, mesh=None, moe_dispatch="dense", compare="default") 
           f"{attn_layers} attention layers x {len(prompts)} prefills")
     check(counts["memcpy_words"] > 0 and counts["batch_copy_pages"] > 0,
           f"the prompt copies did not go through memcpy_words and batch_copy_pages: {counts}")
+    check(counts["decode_attention"] == attn_layers * decode_s[1],
+          f"decode_attention launched {counts['decode_attention']} times, not "
+          f"{attn_layers} attention layers x {decode_s[1]} decode steps")
     m = server.metrics
     ttft = [(len(r.prompt), r.first_token_at - r.arrived_at) for r in reqs]
     # the time to first token split by request (a request's prefill, splice
@@ -3580,6 +3656,52 @@ def flash_at(dev, gen, flush, name, B, S, H, KV, hd, window, n_meta, *, gqa: boo
     return out
 
 
+@phase("5e decode attention times")
+def times_5(dev, gen) -> list:
+    """The kernel at the benchmark's two serving decode shapes (bf16, the
+    mixes' ragged lengths) beside its bound (the live K and V bytes, the
+    mask, q and o at the card's rate), its plain version and, as the
+    library's yardstick only, ``scaled_dot_product_attention`` with a
+    boolean mask over the whole cache."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dk
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev).zero_()
+    rows = []
+    for i, (name, shape, mix) in enumerate(DECODE_SHAPES[:2]):
+        B, S, H, KV, hd = shape
+        q, k, v, valid, n_live = decode_inputs(gen, dev, shape, mix, torch.bfloat16, i)
+        live = int(n_live.sum())
+        nbytes = 2 * live * KV * hd * 2 + B * S + 2 * q.numel() * 2
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = valid[:, None, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        got = dk.decode_attention(q, k, v, valid, n_live)
+        lib_err = float((lib()[:, :, 0].float() - got.float()).abs().max())
+        row = {"name": f"decode_attention {name}",
+               "shape": f"q [{B}, {H}, {hd}], k/v [{B}, {S}, {KV}, {hd}] bf16, {live} live "
+                        f"slots ({mix} mix, mean {live / B:.0f} a row)",
+               "ms": cold_ms(lambda: dk.decode_attention(q, k, v, valid, n_live), 20, flush),
+               "plain_ms": cold_ms(lambda: dk.decode_attention_plain(q, k, v, valid, n_live),
+                                   5, flush),
+               "library_ms": cold_ms(lib, 20, flush),
+               "library_call": "F.scaled_dot_product_attention(attn_mask=<bool [B, 1, 1, S]>) "
+                               "over every slot",
+               "bound_ms": nbytes / mem_bps() * 1e3, "bound_by": "bytes", "bytes": nbytes,
+               "max_abs_err_library": lib_err}
+        row["plain_shape"] = row["shape"]
+        print(f"  {row['name']} ({row['shape']}): {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({nbytes} B), plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms; max |kernel - library| {lib_err:.3e}")
+        rows.append(row)
+    chat = dict(rows[0], name="decode_attention", shapes=rows)
+    return [chat]
+
+
 # --------------------------------------------------------------------------- main
 # --------------------------------------------------------------------------- phase 2e
 #: phase 2e's shapes, (B, S, H, KV, hd): the reference test's f32 case, and
@@ -4444,12 +4566,18 @@ def roofline_decode(dev, card: str) -> dict:
         sync(dev)
         secs.append(time.perf_counter() - t0)
     weights = sum(t.numel() * t.element_size() for t in ttree.leaves(params))
+    # the step reads every weight but the embedding table, of which it
+    # gathers one row a slot (the decode attention's cache reads are the
+    # kernel's, which the counter sees as an opaque launch of 0 B)
+    embed = params["embed"]
+    read = weights - (embed.shape[0] - ROOF_DECODE_SLOTS) * embed[0].numel() * embed.element_size()
     res = {**_roofline(counter.cost(), statistics.median(secs)), "step_s_all": secs,
-           "weight_bytes": weights, "ops": sum(r["n"] for r in counter.records)}
-    del params, cache
+           "weight_bytes": weights, "weight_bytes_read": read,
+           "ops": sum(r["n"] for r in counter.records)}
+    del params, cache, embed
     print(f"decode step roofline on {card}: " + json.dumps(res))
-    check(res["bytes"] >= weights, f"the decode step's count reads {res['bytes']} B, less "
-          f"than its {weights} B of weights")
+    check(res["bytes"] >= read, f"the decode step's count reads {res['bytes']} B, less "
+          f"than the {read} B of weights it reads")
     return res
 
 
@@ -4558,6 +4686,7 @@ def run() -> int:
     kernels_vs_plain_2(dev, gen, errs)
     kernels_vs_plain_3(dev, gen, errs)
     kernels_vs_plain_4(dev, gen, errs)
+    kernels_vs_plain_5(dev, gen, errs)
     bwd = flash_backward(dev, gen)
     # each slice's main path, with the counts set to 0 just before it and
     # read just after it
@@ -4633,6 +4762,7 @@ def run() -> int:
     del shapes2
     rows.update({r["name"]: r for r in times_3(dev, gen)})
     rows.update({r["name"]: r for r in times_4(dev, gen)})
+    rows.update({r["name"]: r for r in times_5(dev, gen)})
     # slice 11: hymba and seamless, before 4h (which needs the card's memory
     # to itself); each path sets the counts to 0 just before it and reads
     # them just after it
@@ -4735,7 +4865,8 @@ def run() -> int:
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": FLASH_SOURCE if name == "flash_attention" else SOURCE,
+            "source": {"flash_attention": FLASH_SOURCE,
+                       "decode_attention": DECODE_SOURCE}.get(name, SOURCE),
             "replaces": replaces,
             "launches": (counts[name] if name in SLICE1 else counts2[name] if name in SLICE2
                          else counts3[name] if name in SLICE3 else counts4[name]),
@@ -4745,6 +4876,7 @@ def run() -> int:
             "shape": r["shape"], "plain_shape": r["plain_shape"],
             **({"library_call": r["library_call"]} if "library_call" in r else {}),
             **({"prefill_shapes": r["prefill_shapes"]} if "prefill_shapes" in r else {}),
+            **({"decode_shapes": r["shapes"]} if "shapes" in r else {}),
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -152,7 +152,8 @@ def attn_sub(x: torch.Tensor, p: dict, ctx: Ctx, layer_type: str, mode: str,
         else:  # decode: S == 1
             new_cache, k_all, v_all, valid = _decode_cache_update(cfg, ctx, layer_type, cache,
                                                                   k[:, 0], v[:, 0])
-            o = L.decode_attention(q[:, 0], k_all, v_all, valid)[:, None]
+            o = L.decode_attention(q[:, 0], k_all, v_all, valid,
+                                   n_live=_live_bound(ctx, layer_type))[:, None]
         o = ann(o, "batch", None, "heads", None)
         # laid out as wo's rows: where the heads do not divide the model axis
         # (and their flat width does) the gradient is gathered here, since
@@ -233,6 +234,15 @@ def _decode_cache_update(cfg, ctx: Ctx, layer_type: str, cache: dict, k1, v1):
     if ring:
         new_cache["pos"] = cache["pos"]
     return new_cache, cache["k"], cache["v"], valid
+
+
+def _live_bound(ctx: Ctx, layer_type: str):
+    """The decode attention's bound on live slots: a full cache holds slots
+    [0, lengths], so ``lengths + 1`` (past the cache's end where an idle
+    row keeps counting: the kernel reads no slot past either); every slot
+    of a ring may be live (None).  One op in every layer, so that each
+    layer's trip runs the same ops (``op_cost.counted_range``)."""
+    return None if _is_ring(layer_type, ctx) else (ctx.lengths + 1).to(torch.int32)
 
 
 def _cache_write(ctx: Ctx, ring: bool, Sc: int, seq, k1, v1, pos, ck, cv, cpos=None):

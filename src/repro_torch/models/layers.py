@@ -42,6 +42,7 @@ from repro_torch.distributed.annotate import (
     unflatten,
 )
 from repro_torch.distributed.sharding import P, _as_tuple
+from repro_torch.kernels import decode_attention as _decode_kernel
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.obs.spans import stage
 
@@ -252,55 +253,67 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     valid_mask: torch.Tensor, *, scale: Optional[float] = None) -> torch.Tensor:
+                     valid_mask: torch.Tensor, *, n_live: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """Single-token attention against a cache.
 
-    q [B, H, hd]; k_cache, v_cache [B, S, KV, hd]; valid_mask [B, S] bool.
-    Under a rules context each rank attends over its own (batch x KV head x
-    cache sequence) shard, and ranks that split the sequence combine their
-    softmax sums (what GSPMD makes of the reference's einsums; DTensor's
-    own einsums over these layouts need its slowest resharding search)."""
+    q [B, H, hd]; k_cache, v_cache [B, S, KV, hd]; valid_mask [B, S] bool;
+    n_live [B] int32 or None: slots at and past it are masked (the kernel
+    reads none of them).  CUDA tensors go through the hand-written kernel
+    (``kernels/decode_attention.py``), CPU tensors through its plain
+    version.  Under a rules context each rank attends over its own (batch x
+    KV head x cache sequence) shard, and ranks that split the sequence
+    combine their softmax sums (what GSPMD makes of the reference's einsums;
+    DTensor's own einsums over these layouts need its slowest resharding
+    search)."""
     ctx = _current()
     if ctx is None:
-        return _decode_attention(q, k_cache, v_cache, valid_mask, scale, None)
+        return _decode_attention(q, k_cache, v_cache, valid_mask, n_live, scale, None)
     mesh, rules = ctx
     kv_spec = rules.spec(k_cache.shape, ("batch", "seq", "kv_heads", None))
     b_ax, s_ax, kv_ax = kv_spec[0], kv_spec[1], kv_spec[2]
     q_spec = P(b_ax, kv_ax, None)
 
-    def local(q_l, k_l, v_l, m_l):
-        return _decode_attention(q_l, k_l, v_l, m_l, scale,
+    def local(q_l, k_l, v_l, m_l, n_l):
+        return _decode_attention(q_l, k_l, v_l, m_l, n_l, scale,
                                  None if s_ax is None else (mesh, s_ax))
 
-    return shard_map(local, mesh, (q_spec, kv_spec, kv_spec, P(b_ax, s_ax)), q_spec)(
-        q, k_cache, v_cache, valid_mask)
+    return shard_map(local, mesh, (q_spec, kv_spec, kv_spec, P(b_ax, s_ax), P(b_ax)), q_spec)(
+        q, k_cache, v_cache, valid_mask, n_live)
 
 
-def _decode_attention(q, k_cache, v_cache, valid_mask, scale, seq_split):
+def _decode_attention(q, k_cache, v_cache, valid_mask, n_live, scale, seq_split):
     """``decode_attention`` on one rank's tensors; ``seq_split`` (mesh,
-    axes) when the cache's sequence is split over those mesh axes."""
-    B, H, hd = q.shape
-    _, S, KV, _ = k_cache.shape
-    G = H // KV
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, KV, G, hd)
-    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float()) * scale
-    s = torch.where(valid_mask[:, None, None, :], s,
-                    torch.tensor(NEG_INF, dtype=torch.float32, device=q.device))
+    axes) when the cache's sequence is split over those mesh axes, where
+    ``n_live`` still counts the whole sequence's slots."""
     if seq_split is None:
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
-    else:
-        import torch.distributed as dist
+        return _decode_kernel.decode_attention(q, k_cache, v_cache, valid_mask, n_live,
+                                               scale=scale)
+    import torch.distributed as dist
 
-        mesh, axes = seq_split
-        m = s.amax(dim=-1, keepdim=True)
+    mesh, axes = seq_split
+    B, H, hd = q.shape
+    S = k_cache.shape[1]
+    if n_live is not None:  # this rank's slots start at off
+        off = axis_index(mesh, axes) * S
+        n_live = (n_live - off).clamp(0, S).to(torch.int32)
+    if q.device.type == "cuda":
+        # the kernel's rows, each with its largest score and sum, combined
+        o, m_r, l_r = _decode_kernel.decode_attention_partials(q, k_cache, v_cache,
+                                                               valid_mask, n_live, scale=scale)
+        m = m_r.clone()
         for a in _as_tuple(axes):
             dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
-        p = torch.exp(s - m)
-        l = all_reduce_sum(p.sum(dim=-1, keepdim=True), mesh, axes)
-        o = all_reduce_sum(torch.einsum("bkgs,bskh->bkgh", p, v_cache.float()), mesh,
-                           axes) / l
+        w = torch.exp(m_r - m) * l_r
+        o = all_reduce_sum(o * w[..., None], mesh, axes) / all_reduce_sum(w, mesh, axes)[..., None]
+        return o.to(v_cache.dtype)
+    s = _decode_kernel.scores_plain(q, k_cache, valid_mask, n_live, scale=scale)
+    m = s.amax(dim=-1, keepdim=True)
+    for a in _as_tuple(axes):
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    p = torch.exp(s - m)
+    l = all_reduce_sum(p.sum(dim=-1, keepdim=True), mesh, axes)
+    o = all_reduce_sum(torch.einsum("bkgs,bskh->bkgh", p, v_cache.float()), mesh, axes) / l
     return o.reshape(B, H, hd).to(v_cache.dtype)
 
 
