@@ -90,6 +90,12 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      [1, 128, 2, 32] within 2e-4, bf16 at tinyllama's [B, 2048, 32, 64] /
      [B, 2048, 4, 64] with B = 1 and phase 4e(i)'s B = 8, within 4 bf16
      ulps of each gradient's largest entry;
+  2g. the latent decode kernel (``kernels/mla_decode.py``) against its plain
+     version: DeepSeek-V2-Lite's absorbed decode at the dsv2lite.longctx
+     cell's shape (q [32, 16, 576], a latent [32, 18432, 576] in bf16, live
+     slots drawn as the longctx mix draws them) within one bf16 rounding
+     step, and at a small ragged shape (rows of 0, 1, 77, 256 and 300 live
+     slots) in bf16 and f32;
   3e. the traced main path: under each wait policy a
      ``make_device(trace=1.0)`` with a Sampler attached (``observe``) runs
      copies (one behind an ``after=`` fence), CRCs with a ``.then`` chain,
@@ -192,6 +198,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      dense dispatch with the capacity factor raised to ceil(E / k) (no
      drops in either): within twice the bf16 noise measured in the run
      (the dense dispatch with the weights made f32 in place);
+  4n. DeepSeek-V2-Lite at full width and depth (27 layers of multi-head
+     latent attention over a 512 + 64 latent cache, YaRN rope; layer 0
+     dense, then 64 experts top-6 and 2 shared, the top-6 weights not
+     renormalised; bf16, 15.7 G parameters, 31.4 GB) served as in 4d: 27 x
+     8 flash launches (the expanded prefill padded to head dim 256),
+     mla_decode once a layer a decode step with the counts set to 0 just
+     before serving, decode_attention never; flash against chunked
+     prefill logits as in 4h;
   8. (after phase 6's CRC counts) the entry points as a user runs them:
      examples/quickstart_torch.py, incremental_checkpointing_torch.py,
      serve_continuous_batching_torch.py and train_e2e_torch.py (150 of
@@ -238,7 +252,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      gemma3-1b, qwen2-vl-2b, deepseek-moe-16b and hymba-1.5b (a local and a
      global layer) prefill shapes with their bounds over the visible (q, k)
      pairs and SDPA (with an explicit boolean mask for the window and the
-     meta keys); fill against
+     meta keys); the decode attention at the chat and rag cells' shapes and
+     the latent decode at the longctx cell's, each against its live bytes,
+     its plain version and SDPA with a boolean mask; fill against
      ``Tensor.fill_`` interleaved call by call); the device work of one
      delta apply on the leaf (``torch.profiler``); the save and restore
      seconds of phase 4c; ``ops.crc32`` end to end at 4 KiB .. 1 GiB;
@@ -307,6 +323,7 @@ COPY_STAGES = 4
 SOURCE = "src/repro_torch/kernels/csrc/dsa_kernels.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
+MLA_SOURCE = "src/repro_torch/kernels/csrc/mla_decode.cu"
 #: bytes read between two timed calls, to push the last call's data out of
 #: the 50 MB L2 (read, not written, so no dirty lines are left to evict)
 FLUSH_BYTES = 256 * MiB
@@ -414,15 +431,17 @@ SLICE3 = ("dualcast_words", "compare_pattern_words", "fill_verify_words", "memcp
           "copy_crc_words", "gf2_fold")
 #: slice 4 (phases 3d and 4d): serving: flash attention in every prefill, the
 #: prompt copies (memcpy, and batch copy where the chunks are equal and fuse),
-#: decode attention in every decode step
-SLICE4 = ("flash_attention", "memcpy_words", "batch_copy_pages", "decode_attention")
+#: decode attention in every decode step, or the latent decode in a
+#: latent-attention model's (phase 4n)
+SLICE4 = ("flash_attention", "memcpy_words", "batch_copy_pages", "decode_attention",
+          "mla_decode")
 
 
 def kernel_table():
     """name -> (wrapper with its ``launches`` count, file:line replaced)."""
     from repro_torch.kernels import (batch_copy, compare, crc32, decode_attention, delta_apply,
                                      delta_create, dualcast, fill, flash_attention, fused,
-                                     memcpy)
+                                     memcpy, mla_decode)
 
     return {
         "memcpy_words": (memcpy.memcpy_words, "src/repro/kernels/memcpy.py:20"),
@@ -446,6 +465,7 @@ def kernel_table():
                             "src/repro/kernels/flash_attention.py:72"),
         "decode_attention": (decode_attention.decode_attention,
                              "none: the einsums of src/repro/models/layers.py:286"),
+        "mla_decode": (mla_decode.mla_decode, "none: the JAX package has no latent attention"),
     }
 
 
@@ -1624,6 +1644,77 @@ def kernels_vs_plain_5(dev, gen, errs: dict) -> None:
     errs["decode_attention"] = worst
 
 
+# --------------------------------------------------------------------------- phases 2g and 5f
+#: the dsv2lite.longctx cell's decode (B, S): 32 rows of an 18432-slot latent
+#: cache, 16 heads on one 576-wide key (512 latent + 64 roped) and 512-wide
+#: values, at DeepSeek-V2-Lite's softmax scale 192 ** -0.5 x m(0.707) ** 2
+MLA_SHAPE, MLA_SCALE = (32, 18432), 0.114721
+#: the kernel against its plain version, both from the same stored values.
+#: f32 (the CUDA-core kernel): the same f32 function, sums in another order.
+#: bf16 (tensor cores): f32 scores of exact bf16 products in another order,
+#: p into P.C as two bf16 terms (about 2^-17 of p) over up to 18k slots;
+#: the output is that value rounded once to bf16, so one bf16 rounding step
+#: of the plain value is added to the bf16 slack
+MLA_TOL = {torch.float32: dict(atol=2e-6, rtol=2e-5),
+           torch.bfloat16: dict(atol=2e-5, rtol=1e-3)}
+
+
+def mla_lengths(rng, B: int) -> np.ndarray:
+    """Live slots of B decoding rows as bench/traffic/longctx.json draws
+    them: a prompt uniform over 8192-16384 and part of an output uniform
+    over 64-2048."""
+    prompt, out = rng.integers(8192, 16385, B), rng.integers(64, 2049, B)
+    return prompt + (rng.uniform(0, 1, B) * out).astype(np.int64) + 1
+
+
+def mla_inputs(gen, dev, B: int, S: int, dtype):
+    """The absorbed query q [B, 16, 576] (about the size q_nope W_UK has in
+    the model), one latent [B, S, 576], and c_kv and k_pe as views of it,
+    which the kernel reads in place as it reads the model's cache."""
+    q = (torch.randn((B, 16, 576), generator=gen, device=dev) * 0.5).to(dtype)
+    lat = torch.randn((B, S, 576), generator=gen, device=dev).to(dtype)
+    return q, lat, lat[..., :512], lat[..., 512:]
+
+
+def mla_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """``got`` within MLA_TOL of the f32 ``want`` (and one rounding step of
+    ``got``'s type where it is bf16)."""
+    tol = MLA_TOL[got.dtype]
+    slack = tol["atol"] + tol["rtol"] * want.abs()
+    if got.dtype == torch.bfloat16:
+        slack = slack + 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    return bool(((got.float() - want).abs() <= slack).all())
+
+
+@phase("2g the latent decode against its plain version")
+def kernels_vs_plain_6(dev, gen, errs: dict) -> None:
+    from repro_torch.kernels import mla_decode as mk
+
+    B, S = MLA_SHAPE
+    cell = np.minimum(mla_lengths(np.random.default_rng(0), B), S)
+    small = np.array([0, 1, 77, 256, 300])  # no live slot, one, a ragged tile, a split, all
+    worst = 0.0
+    for name, lengths, S, dtype in (("longctx", cell, S, torch.bfloat16),
+                                    ("small", small, 300, torch.bfloat16),
+                                    ("small", small, 300, torch.float32)):
+        B = len(lengths)
+        q, _, c, kpe = mla_inputs(gen, dev, B, S, dtype)
+        n_live = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        got = mk.mla_decode(q, c, kpe, n_live, scale=MLA_SCALE)
+        want = mk.mla_decode_plain(q.float(), c.float(), kpe.float(), n_live, scale=MLA_SCALE)
+        sync(dev)
+        what = f"mla_decode {name} q {tuple(q.shape)}, latent [{B}, {S}, 576] {dtype}"
+        check(got.dtype == dtype and got.shape == (B, 16, 512), f"{what}: {got.dtype} "
+              f"{tuple(got.shape)}")
+        err = float((got.float() - want).abs().max())
+        worst = max(worst, err)
+        print(f"  {what}, {int(n_live.sum())} live slots: max |err| {err:.3e}")
+        check(mla_close(got, want), f"{what}: kernel disagrees with its plain version "
+              f"(max err {err})")
+        del q, c, kpe, got, want
+    errs["mla_decode"] = worst
+
+
 # --------------------------------------------------------------------------- phases 3d and 4d
 def sync(dev) -> None:
     if torch.device(dev).type == "cuda":
@@ -1940,9 +2031,11 @@ def serve_full(dev, cfg, *, mesh=None, moe_dispatch="dense", compare="default") 
           f"{attn_layers} attention layers x {len(prompts)} prefills")
     check(counts["memcpy_words"] > 0 and counts["batch_copy_pages"] > 0,
           f"the prompt copies did not go through memcpy_words and batch_copy_pages: {counts}")
-    check(counts["decode_attention"] == attn_layers * decode_s[1],
-          f"decode_attention launched {counts['decode_attention']} times, not "
-          f"{attn_layers} attention layers x {decode_s[1]} decode steps")
+    decoder, other = (("mla_decode", "decode_attention") if cfg.mla is not None
+                      else ("decode_attention", "mla_decode"))
+    check(counts[decoder] == attn_layers * decode_s[1] and counts[other] == 0,
+          f"{decoder} launched {counts[decoder]} times, not {attn_layers} attention layers x "
+          f"{decode_s[1]} decode steps, and {other} {counts[other]} times")
     m = server.metrics
     ttft = [(len(r.prompt), r.first_token_at - r.arrived_at) for r in reqs]
     # the time to first token split by request (a request's prefill, splice
@@ -2158,7 +2251,7 @@ def replayed_routing(calls: list):
         _, _, aux = base(x, w_router, cfg)
         idx = next(replay)["idx"].to(x.device)
         weights = torch.softmax(x.float() @ w_router.float(), dim=-1).gather(1, idx)
-        if cfg.top_k > 1:
+        if cfg.top_k > 1 and cfg.norm_topk_prob:
             weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
         return weights, idx, aux
 
@@ -2553,6 +2646,7 @@ def serving_mesh_full(dev, mesh, tiny_4d: dict) -> dict:
 #: MoE layers of 64 experts top-6 with 2 shared experts; llama4-maverick:
 #: dense / MoE periods, 128 experts top-1) and the Mamba-2 SSM family
 DEEPSEEK_MOE, LLAMA4, MAMBA2 = "deepseek-moe-16b", "llama4-maverick-400b-a17b", "mamba2-370m"
+DEEPSEEK_V2_LITE = "deepseek-v2-lite"
 #: phase 3h's prompts (the 77-token one's prefill logits are compared)
 SLICE10_SMALL_PROMPTS = (16, 77, 33, 50, 64, 21)
 SLICE10_SMALL_NEW = 6
@@ -2621,6 +2715,22 @@ def serving_moe_full(dev) -> dict:
     release(dev)
     print(f"held on the card before the phase: {torch.cuda.memory_allocated(dev)} B")
     return serve_full(dev, get_config(DEEPSEEK_MOE))
+
+
+@phase("4n serving DeepSeek-V2-Lite at full width and depth (bf16, flash)")
+def serving_mla_full(dev) -> dict:
+    """deepseek-v2-lite (27 layers of multi-head latent attention over a
+    512 + 64 latent cache, YaRN rope; a dense layer with d_ff 10944, then 26
+    MoE layers of 64 experts top-6, not renormalised, and 2 shared; bf16,
+    15.7 G parameters) served as phase 4d serves tinyllama: the latent
+    decode once a layer a decode step; ``flash_vs_chunked`` then holds its
+    padded flash prefill against the chunked one and reports its
+    routing."""
+    from repro_torch.configs import get_config
+
+    release(dev)
+    print(f"held on the card before the phase: {torch.cuda.memory_allocated(dev)} B")
+    return serve_full(dev, get_config(DEEPSEEK_V2_LITE))
 
 
 def ssm_decode_chain(model, params, batch, dev) -> dict:
@@ -3702,6 +3812,55 @@ def times_5(dev, gen) -> list:
     return [chat]
 
 
+@phase("5f latent decode times")
+def times_6(dev, gen) -> list:
+    """The latent decode at the dsv2lite.longctx cell's shape (bf16, the
+    mix's live slots) beside its bound (the live latent bytes, q and o at
+    the card's rate), its plain version and, as the library's yardstick
+    only, ``scaled_dot_product_attention`` on the absorbed form (the 16
+    heads as 16 query rows of one head, a 576-wide key, 512-wide values)
+    with a boolean mask over the whole cache."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mla_decode as mk
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev).zero_()
+    B, S = MLA_SHAPE
+    q, lat, c, kpe = mla_inputs(gen, dev, B, S, torch.bfloat16)
+    n_live = torch.as_tensor(np.minimum(mla_lengths(np.random.default_rng(1), B), S),
+                             dtype=torch.int32, device=dev)
+    live = int(n_live.sum())
+    nbytes = 2 * (live * 576 + B * 16 * 576 + B * 16 * 512)
+    # scores and P.C run on tensor cores: their FLOPs at the bf16 peak
+    t_bytes = nbytes / mem_bps() * 1e3
+    t_ops = 2 * 16 * (2 * 512 + 64) * live / H100_SXM_BF16_OPS * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    qt, kt, vt = q[:, None], lat[:, None], c[:, None]
+    mask = mk.live_mask(n_live, S)[:, None, None, :]
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=MLA_SCALE)
+
+    got = mk.mla_decode(q, c, kpe, n_live, scale=MLA_SCALE)
+    lib_err = float((lib()[:, 0].float() - got.float()).abs().max())
+    row = {"name": "mla_decode",
+           "shape": f"q [{B}, 16, 576], latent [{B}, {S}, 576] bf16, {live} live slots "
+                    f"(longctx mix, mean {live / B:.0f} a row)",
+           "ms": cold_ms(lambda: mk.mla_decode(q, c, kpe, n_live, scale=MLA_SCALE), 20, flush),
+           "plain_ms": cold_ms(lambda: mk.mla_decode_plain(q, c, kpe, n_live, scale=MLA_SCALE),
+                               5, flush),
+           "library_ms": cold_ms(lib, 20, flush),
+           "library_call": "F.scaled_dot_product_attention(attn_mask=<bool [B, 1, 1, S]>) on "
+                           "the absorbed form over every slot",
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "max_abs_err_library": lib_err}
+    row["plain_shape"] = row["shape"]
+    print(f"  {row['name']} ({row['shape']}): {row['ms']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({nbytes} B), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; "
+          f"max |kernel - library| {lib_err:.3e}")
+    return [row]
+
+
 # --------------------------------------------------------------------------- main
 # --------------------------------------------------------------------------- phase 2e
 #: phase 2e's shapes, (B, S, H, KV, hd): the reference test's f32 case, and
@@ -4687,6 +4846,7 @@ def run() -> int:
     kernels_vs_plain_3(dev, gen, errs)
     kernels_vs_plain_4(dev, gen, errs)
     kernels_vs_plain_5(dev, gen, errs)
+    kernels_vs_plain_6(dev, gen, errs)
     bwd = flash_backward(dev, gen)
     # each slice's main path, with the counts set to 0 just before it and
     # read just after it
@@ -4719,8 +4879,10 @@ def run() -> int:
     torch.cuda.synchronize()
     counts_3d = read_counts(SLICE4)
     print(f"launches on the slice-4 main path at the small size (phase 3d): {counts_3d}")
-    check(all(v > 0 for v in counts_3d.values()),
-          f"a kernel of the slice-4 main path never launched in phase 3d: {counts_3d}")
+    check(all(v > 0 for k, v in counts_3d.items() if k != "mla_decode")
+          and counts_3d["mla_decode"] == 0,
+          f"a kernel of the slice-4 main path never launched in phase 3d, or the latent "
+          f"decode did: {counts_3d}")
     full = serving_full(dev)  # sets the counts to 0 itself, reads them after serving
     counts4 = full["launches"]
     # slice 9: gemma3 and the VLM frontend; each phase sets the counts to 0
@@ -4763,6 +4925,7 @@ def run() -> int:
     rows.update({r["name"]: r for r in times_3(dev, gen)})
     rows.update({r["name"]: r for r in times_4(dev, gen)})
     rows.update({r["name"]: r for r in times_5(dev, gen)})
+    rows.update({r["name"]: r for r in times_6(dev, gen)})
     # slice 11: hymba and seamless, before 4h (which needs the card's memory
     # to itself); each path sets the counts to 0 just before it and reads
     # them just after it
@@ -4794,6 +4957,8 @@ def run() -> int:
     print(f"launches while serving deepseek-moe-16b (phase 4h): {moe_full['launches']}")
     ssm_full = serving_ssm_full(dev)
     print(f"launches while serving mamba2-370m (phase 4i): {ssm_full['launches']}")
+    mla_full = serving_mla_full(dev)  # sets the counts to 0 itself, reads them after serving
+    print(f"launches while serving deepseek-v2-lite (phase 4n): {mla_full['launches']}")
     # slice 12: the host mesh, last (4l serves deepseek-moe-16b again); each
     # path sets the counts to 0 just before it and reads them just after it
     from repro_torch.launch.mesh import make_host_mesh
@@ -4825,6 +4990,8 @@ def run() -> int:
           + json.dumps(shown(moe_full)))
     print("serving, mamba2-370m full width and depth (phase 4i): "
           + json.dumps(shown(ssm_full)))
+    print("serving, deepseek-v2-lite full width and depth (phase 4n): "
+          + json.dumps(shown(mla_full)))
     print(f"hymba and seamless reduced, f32, card vs CPU (phase 3i) on {card}: " + json.dumps(
         {a: ({k: v for k, v in r.items() if k != "launches"} if isinstance(r, dict) else r)
          for a, r in hybrid_small.items()}))
@@ -4865,11 +5032,13 @@ def run() -> int:
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": {"flash_attention": FLASH_SOURCE,
-                       "decode_attention": DECODE_SOURCE}.get(name, SOURCE),
+            "source": {"flash_attention": FLASH_SOURCE, "decode_attention": DECODE_SOURCE,
+                       "mla_decode": MLA_SOURCE}.get(name, SOURCE),
             "replaces": replaces,
             "launches": (counts[name] if name in SLICE1 else counts2[name] if name in SLICE2
-                         else counts3[name] if name in SLICE3 else counts4[name]),
+                         else counts3[name] if name in SLICE3
+                         else mla_full["launches"][name] if name == "mla_decode"
+                         else counts4[name]),
             "max_abs_err": errs.get(name, 0),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

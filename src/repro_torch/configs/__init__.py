@@ -1,6 +1,7 @@
 from repro_torch.configs.base import (
     EncoderConfig,
     HybridConfig,
+    MLAConfig,
     ModelConfig,
     MoEConfig,
     SHAPES,
@@ -8,6 +9,7 @@ from repro_torch.configs.base import (
     ShapeConfig,
     SSMConfig,
     VLMConfig,
+    YarnConfig,
 )
 from repro_torch.configs.registry import (
     ARCH_IDS,
@@ -21,6 +23,7 @@ __all__ = [
     "ARCH_IDS",
     "EncoderConfig",
     "HybridConfig",
+    "MLAConfig",
     "ModelConfig",
     "MoEConfig",
     "SHAPES",
@@ -28,6 +31,7 @@ __all__ = [
     "ShapeConfig",
     "SSMConfig",
     "VLMConfig",
+    "YarnConfig",
     "all_cells",
     "applicable",
     "get_config",

@@ -34,6 +34,9 @@ class MoEConfig:
     router_jitter: float = 0.0
     capacity_factor: float = 1.25
     aux_loss_coef: float = 0.001
+    # whether the top-k weights are renormalised to sum to 1 (deepseek-moe
+    # does; DeepSeek-V2's ``norm_topk_prob`` false keeps the softmax's)
+    norm_topk_prob: bool = True
 
 
 @dataclass(frozen=True)
@@ -86,6 +89,47 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2, arXiv:2405.04434): keys and
+    values come from one latent of ``kv_lora_rank`` per token (the cache),
+    queries from x by one projection (DeepSeek-V2-Lite's: no q latent);
+    each head's query and key are ``qk_nope_head_dim`` plain dims and
+    ``qk_rope_head_dim`` roped dims, the rope part of the key one head
+    shared by all."""
+
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """A cached token's width: the latent and the shared roped key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
+class YarnConfig:
+    """YaRN rope scaling (arXiv:2309.00071, as DeepSeek-V2 configures it):
+    frequencies between the original and the ``factor``-interpolated ones
+    over a ramp of rotations ``beta_fast`` .. ``beta_slow`` within
+    ``original_max_position_embeddings``; cos and sin times
+    ``m(mscale) / m(mscale_all_dim)`` and the softmax scale times
+    ``m(mscale_all_dim) ** 2``, where ``m(a) = 0.1 a ln(factor) + 1``."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -114,6 +158,10 @@ class ModelConfig:
     encoder: Optional[EncoderConfig] = None
     vlm: Optional[VLMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    # latent attention in place of the heads' own K / V (head_dim is then
+    # the query / key width, nope + rope), and its rope scaling
+    mla: Optional[MLAConfig] = None
+    rope_scaling: Optional[YarnConfig] = None
 
     # -- misc ------------------------------------------------------------------
     norm_eps: float = 1e-6
@@ -145,13 +193,23 @@ class ModelConfig:
             return tuple("global" if i in g else "local" for i in range(self.num_layers))
         raise ValueError(f"unknown attn_pattern {self.attn_pattern}")
 
+    def attn_params(self) -> int:
+        """One layer's attention projections."""
+        d, H = self.d_model, self.num_heads
+        if self.mla is not None:
+            m = self.mla
+            return (d * H * m.qk_head_dim + d * m.latent_dim
+                    + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+                    + H * m.v_head_dim * d)
+        h = H * self.head_dim
+        kvh = self.num_kv_heads * self.head_dim
+        return d * h + 2 * d * kvh + h * d
+
     def num_params(self) -> int:
         """Approximate parameter count (embedding + layers), for 6ND math."""
         d, f, L, V = self.d_model, self.d_ff, self.num_layers, self.vocab_size
         emb = V * d * (1 if self.tie_embeddings else 2)
-        h = self.num_heads * self.head_dim
-        kvh = self.num_kv_heads * self.head_dim
-        attn = d * h + 2 * d * kvh + h * d
+        attn = self.attn_params()
         mlp = 3 * d * f
         per_layer = attn + mlp
         if self.moe is not None:
@@ -194,9 +252,7 @@ class ModelConfig:
             return self.num_params()
         e = self.moe
         d, L = self.d_model, self.num_layers
-        h = self.num_heads * self.head_dim
-        kvh = self.num_kv_heads * self.head_dim
-        attn = d * h + 2 * d * kvh + h * d
+        attn = self.attn_params()
         act_mlp = 3 * d * e.d_ff_expert * (e.top_k + e.num_shared_experts)
         dense_mlp = 3 * d * (e.d_ff_dense or self.d_ff)
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
@@ -243,6 +299,10 @@ class ModelConfig:
                 num_meta_tokens=4,
                 global_layers=(0, 2),
             )
+        if self.mla is not None:
+            changes["mla"] = dataclasses.replace(
+                self.mla, kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=16,
+                v_head_dim=16)
         return dataclasses.replace(self, **changes)
 
 

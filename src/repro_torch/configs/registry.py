@@ -23,6 +23,8 @@ _MODULES: Dict[str, str] = {
     "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
     "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
+    # the port's own: no counterpart in the JAX package
+    "deepseek-v2-lite": "repro_torch.configs.deepseek_v2_lite",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)

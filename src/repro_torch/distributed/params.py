@@ -51,6 +51,9 @@ _BASE = {
     "cross_k": ("batch", None, "kv_heads", None),
     "cross_v": ("batch", None, "kv_heads", None),
     "pos": ("batch", None),
+    # latent-attention caches: one latent a token for all heads, so batch only
+    "c_kv": ("batch", None, None),
+    "k_pe": ("batch", None, None),
     "ssm_state": ("batch", "dinner", None, None),
     "conv_state": ("batch", None, None),
     "lengths": ("batch",),

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "dsa_kernels.cu", CSRC / "flash_attention.cu",
-           CSRC / "decode_attention.cu")
+           CSRC / "decode_attention.cu", CSRC / "mla_decode.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the CUDA toolkit's default install
 NVCC_FLAGS = (
@@ -57,6 +57,7 @@ _SIGNATURES = {
     "dsa_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "dsa_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "dsa_decode_attention": (_P,) * 11 + (_I,) * 7 + (_LL,) * 7 + (_F, _I, _I, _P),
+    "dsa_mla_decode": (_P,) * 8 + (_I,) * 4 + (_LL,) * 4 + (_F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -13,7 +13,10 @@ donates the old ones, so nothing reads them again).  A "local" layer with a
 window keeps a ring cache of ``n_meta + window`` slots with each slot's
 absolute position (-1: empty).  An SSM layer's cache is its f32 SSD state
 and its convolution window; a hybrid layer's is ``{"attn": ..., "ssm":
-...}``, one of each.
+...}``, one of each.  A latent-attention layer (``cfg.mla``, DeepSeek-V2)
+caches ``{"c_kv": [B, S, kv_lora_rank], "k_pe": [B, S, rope dims]}``, the
+normalised latent and the roped key shared by all heads, in place of each
+head's K and V.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import dataclasses
 from typing import Any, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.annotate import (
@@ -30,8 +34,11 @@ from repro_torch.distributed.annotate import (
     full,
     is_dtensor,
     shard_map,
+    unflatten,
 )
 from repro_torch.distributed.sharding import P, _as_tuple
+from repro_torch.kernels import mla_decode as _mla_kernel
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -276,20 +283,156 @@ def _cache_write(ctx: Ctx, ring: bool, Sc: int, seq, k1, v1, pos, ck, cv, cpos=N
     return (off + torch.arange(Sl, device=ck.device))[None] <= pos[:, None]
 
 
+# --------------------------------------------------------------------------- latent attention sub-block
+def init_mla_params(gen, cfg: ModelConfig, dtype, n: Stack = None) -> dict:
+    """DeepSeek-V2's projections, each 2-D with its contraction first: q
+    ``wq`` [D, H (dn + dr)], the latent and shared roped key ``wkv_a`` [D,
+    r + dr], the latent's norm, the heads' nope keys and values ``wkv_b``
+    [r, H (dn + dv)] (each head's dn key columns, then its dv value
+    columns) and ``wo`` [H dv, D]."""
+    m, H, D = cfg.mla, cfg.num_heads, cfg.d_model
+    p = {"wq": _dense(gen, (D, H * m.qk_head_dim), dtype, n)}
+    p["wkv_a"] = _dense(gen, (D, m.latent_dim), dtype, n)
+    p["kv_norm"] = _zeros((m.kv_lora_rank,), dtype, n, gen.device)
+    p["wkv_b"] = _dense(gen, (m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)), dtype,
+                        n)
+    p["wo"] = _dense(gen, (H * m.v_head_dim, D), dtype, n)
+    return p
+
+
+def _init_latent_cache(cfg: ModelConfig, B: int, ctx: Ctx, dtype, device) -> dict:
+    m, S = cfg.mla, ctx.max_cache_len
+    return {"c_kv": torch.zeros((B, S, m.kv_lora_rank), dtype=dtype, device=device),
+            "k_pe": torch.zeros((B, S, m.qk_rope_head_dim), dtype=dtype, device=device)}
+
+
+def mla_sub(x: torch.Tensor, p: dict, ctx: Ctx, layer_type: str, mode: str,
+            cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Latent attention (DeepSeek-V2, arXiv:2405.04434; no residual or norm).
+    q = x Wq split into nope and rope dims; [c_kv | k_pe] = x Wkv_a, c_kv
+    RMS-normalised; q's and k_pe's rope dims roped (k_pe one head, shared);
+    softmax scale ``layers.mla_softmax_scale``.  Train and prefill run the
+    expanded form: [k_nope | v] = c_kv Wkv_b, then causal attention over
+    [k_nope | k_pe] (``_mla_expanded``).  Decode runs the absorbed form
+    against the latent cache: q_lat[h] = q_nope[h] W_UK[h]^T, scores
+    q_lat . c_kv + q_pe . k_pe over the live slots (the kernel of
+    ``kernels/mla_decode.py``), o = (p c_kv) W_UV[h], then Wo.  A
+    ``model.mla`` stage span."""
+    with stage("model.mla", mode):
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
+        cfg, m = ctx.cfg, ctx.cfg.mla
+        B, S, _ = x.shape
+        H, dn, dr, dv, r = (cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim,
+                            m.v_head_dim, m.kv_lora_rank)
+        q = unflatten(x @ p["wq"], 2, (H, dn + dr))
+        kv = x @ p["wkv_a"]
+        c_kv = L.rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
+        cos, sin = ctx.rope(layer_type)
+        q_pe = L.apply_rope(q[..., dn:], cos, sin)
+        k_pe = L.apply_rope(kv[..., None, r:], cos, sin)  # [B, S, 1, dr]
+        scale = L.mla_softmax_scale(cfg)
+        if mode in ("train", "prefill"):
+            kv_b = unflatten(c_kv @ p["wkv_b"], 2, (H, dn + dv))
+            qf = torch.cat([q[..., :dn], q_pe], dim=-1)
+            k = torch.cat([kv_b[..., :dn], k_pe.expand(B, S, H, dr)], dim=-1)
+            o = _mla_expanded(qf, k, kv_b[..., dn:], scale, ctx)
+            new_cache = (_write_prefill_latent(cfg, ctx, c_kv, k_pe[:, :, 0])
+                         if mode == "prefill" else None)
+        else:  # decode: S == 1
+            w = p["wkv_b"].reshape(r, H, dn + dv)
+            q_lat = torch.einsum("bhd,rhd->bhr", q[:, 0, :, :dn], w[..., :dn])
+            o_lat = _latent_decode(ctx, cache, torch.cat([q_lat, q_pe[:, 0]], dim=-1),
+                                   c_kv[:, 0], k_pe[:, 0, 0], scale)
+            o = torch.einsum("bhr,rhd->bhd", o_lat, w[..., dn:])[:, None]
+            new_cache = cache
+        o = ann(o.reshape(B, S, H * dv), "batch", None, "qkv_flat")
+        return L.row_parallel_out(o, p["wo"], ctx.tp_comm), new_cache
+
+
+def _mla_expanded(q, k, v, scale: float, ctx: Ctx) -> torch.Tensor:
+    """Causal attention of q, k [B, S, H, dn + dr] and v [B, S, H, dv] as one
+    attention call of one head width: zero dims appended, which is exact
+    (a zero dim adds nothing to a score, a zero column of v gives a zero
+    column of the output, cut off after), to the flash kernel's smallest
+    built head dim that holds both, or to the wider of the two."""
+    dq, dv = q.shape[-1], v.shape[-1]
+    hd = max(dq, dv)
+    if ctx.attn_impl == "flash":
+        hd = min(d for d in HEAD_DIMS if d >= hd)
+    q, k, v = F.pad(q, (0, hd - dq)), F.pad(k, (0, hd - dq)), F.pad(v, (0, hd - dv))
+    o = L.attention_trainable(q, k, v, causal=ctx.causal, impl=ctx.attn_impl, scale=scale)
+    return o[..., :dv]
+
+
+def _write_prefill_latent(cfg: ModelConfig, ctx: Ctx, c_kv, k_pe) -> dict:
+    """A fresh latent cache with the prompt's S tokens in slots [0, S)."""
+    B, S = c_kv.shape[0], c_kv.shape[1]
+    cache = _init_latent_cache(cfg, B, ctx, c_kv.dtype, c_kv.device)
+    cache["c_kv"][:, :S] = full(c_kv)
+    cache["k_pe"][:, :S] = full(k_pe)
+    return {k: ann(t, "batch", None, None) for k, t in cache.items()}
+
+
+def _latent_decode(ctx: Ctx, cache: dict, q_abs, c1, kpe1, scale: float) -> torch.Tensor:
+    """The token's latent c1 [B, r] and roped key kpe1 [B, dr] written into
+    the cache at ``ctx.lengths`` in place, then the absorbed query q_abs
+    [B, H, r + dr] against the cache's live slots: o_lat [B, H, r].  Under a
+    rules context each rank does both on its batch shard (a
+    ``shard_map``)."""
+    n_live = _live_bound(ctx, "global")
+    rules_ctx = _current()
+    if rules_ctx is None:
+        return _latent_decode_local(q_abs, c1, kpe1, ctx.lengths, n_live, cache["c_kv"],
+                                    cache["k_pe"], scale)
+    mesh, rules = rules_ctx
+    c_spec = rules.spec(cache["c_kv"].shape, ("batch", None, None))
+    b = c_spec[0]
+    return shard_map(lambda *a: _latent_decode_local(*a, scale), mesh,
+                     (P(b, None, None), P(b, None), P(b, None), P(b), P(b), c_spec,
+                      rules.spec(cache["k_pe"].shape, ("batch", None, None))),
+                     P(b, None, None))(q_abs, c1, kpe1, ctx.lengths, n_live, cache["c_kv"],
+                                       cache["k_pe"])
+
+
+def _latent_decode_local(q_abs, c1, kpe1, pos, n_live, c_kv, k_pe, scale: float):
+    """``_latent_decode`` on one rank's tensors.  A position past the
+    cache's end (an idle row keeps counting) writes nothing: the row is
+    rewritten with what it holds, with no host sync."""
+    B, Sc = c_kv.shape[0], c_kv.shape[1]
+    pos = pos.long()
+    bidx = torch.arange(B, device=c_kv.device)
+    inside = (pos < Sc)[:, None]
+    at = pos.clamp(max=Sc - 1)
+    c_kv[bidx, at] = torch.where(inside, c1.to(c_kv.dtype), c_kv[bidx, at])
+    k_pe[bidx, at] = torch.where(inside, kpe1.to(k_pe.dtype), k_pe[bidx, at])
+    return _mla_kernel.mla_decode(q_abs, c_kv, k_pe, n_live, scale=scale)
+
+
 # --------------------------------------------------------------------------- full blocks
 def init_dense_layer(gen, cfg: ModelConfig, dtype, d_ff: Optional[int] = None,
                      n: Stack = None) -> dict:
     return {
         "ln1": _zeros((cfg.d_model,), dtype, n, gen.device),
         "ln2": _zeros((cfg.d_model,), dtype, n, gen.device),
-        "attn": init_attn_params(gen, cfg, dtype, n),
+        "attn": _init_attention(gen, cfg, dtype, n),
         "mlp": init_mlp_params(gen, cfg.d_model, d_ff or cfg.d_ff, dtype, n),
     }
 
 
+def _init_attention(gen, cfg: ModelConfig, dtype, n: Stack = None) -> dict:
+    return (init_mla_params if cfg.mla is not None else init_attn_params)(gen, cfg, dtype, n)
+
+
+def _attention(x, p, ctx: Ctx, layer_type: str, mode: str, cache):
+    """The layer's attention sub-block: latent (``cfg.mla``) or heads."""
+    sub = mla_sub if ctx.cfg.mla is not None else attn_sub
+    return sub(x, p, ctx, layer_type, mode, cache)
+
+
 def apply_dense(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
-    h, new_cache = attn_sub(L.rms_norm(x, p["ln1"], ctx.cfg.norm_eps), p["attn"], ctx,
-                            layer_type, mode, cache)
+    h, new_cache = _attention(L.rms_norm(x, p["ln1"], ctx.cfg.norm_eps), p["attn"], ctx,
+                              layer_type, mode, cache)
     x = x + h
     x = x + L.gated_mlp(L.rms_norm(x, p["ln2"], ctx.cfg.norm_eps), p["mlp"], ctx.cfg.act,
                         tp_comm=ctx.tp_comm)
@@ -301,15 +444,15 @@ def init_moe_layer(gen, cfg: ModelConfig, dtype, n: Stack = None) -> dict:
     return {
         "ln1": _zeros((cfg.d_model,), dtype, n, gen.device),
         "ln2": _zeros((cfg.d_model,), dtype, n, gen.device),
-        "attn": init_attn_params(gen, cfg, dtype, n),
+        "attn": _init_attention(gen, cfg, dtype, n),
         "moe": moe_lib.init_moe_params(gen, cfg.moe, cfg.d_model, dtype, n),
     }
 
 
 def apply_moe(x, p, ctx: Ctx, layer_type: str, mode: str, cache=None):
     """Attention, then ``x + moe(rms_norm(x, ln2))``; returns the router's aux loss."""
-    h, new_cache = attn_sub(L.rms_norm(x, p["ln1"], ctx.cfg.norm_eps), p["attn"], ctx,
-                            layer_type, mode, cache)
+    h, new_cache = _attention(L.rms_norm(x, p["ln1"], ctx.cfg.norm_eps), p["attn"], ctx,
+                              layer_type, mode, cache)
     x = x + h
     y, aux = moe_lib.moe_block(L.rms_norm(x, p["ln2"], ctx.cfg.norm_eps), p["moe"],
                                ctx.cfg.moe, ctx.cfg.act, dispatch=ctx.moe_dispatch,
@@ -419,4 +562,6 @@ def init_block_cache(cfg: ModelConfig, B: int, layer_type: str, ctx: Ctx, dtype,
     if cfg.family == "hybrid":
         return {"attn": _init_attn_cache(cfg, B, layer_type, ctx, dtype, device),
                 "ssm": _init_ssm_cache(cfg, B, cfg.hybrid.ssm, dtype, device)}
+    if cfg.mla is not None:
+        return _init_latent_cache(cfg, B, ctx, dtype, device)
     return _init_attn_cache(cfg, B, layer_type, ctx, dtype, device)

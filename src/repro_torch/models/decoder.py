@@ -2,7 +2,8 @@
 deepseek-67b), gemma3 (periodic local:global attention, qk-norm, tied
 embeddings), the VLM backbone (qwen2-vl: M-RoPE, patch embeddings), MoE
 (deepseek-moe's leading dense layer and MoE stack, llama4-maverick's
-dense / MoE interleave), the Mamba-2 SSM (attention-free, no RoPE) and
+dense / MoE interleave; DeepSeek-V2-Lite's the same stack with latent
+attention, the port's own), the Mamba-2 SSM (attention-free, no RoPE) and
 the hybrid (hymba: attention and SSM heads in each layer, learned meta
 tokens prepended to every sequence), the JAX package's
 ``repro.models.decoder`` in PyTorch.
@@ -29,7 +30,9 @@ a gemma3 period's is ``{"locals": {"k": [n, 5, B, W, KV, hd], "v": ...,
 llama4 period's ``{"dense": {"k", "v"}, "moe": {"k", "v"}}``, each [n, B,
 S, KV, hd]; an SSM stack's ``{"ssm_state": [L, B, H, P, N] f32,
 "conv_state": [L, B, d_conv - 1, d_inner + 2 G N]}``; a hybrid layer's
-``{"attn": {"k", "v"(, "pos")}, "ssm": {"ssm_state", "conv_state"}}``.
+``{"attn": {"k", "v"(, "pos")}, "ssm": {"ssm_state", "conv_state"}}``;
+a latent-attention layer's (DeepSeek-V2) ``{"c_kv": [L, B, S, r], "k_pe":
+[L, B, S, dr]}``.
 With ``n_meta`` meta tokens (hymba: 128) every sequence is ``n_meta``
 longer: positions, lengths and full caches count the meta prefix, and the
 loss drops its rows.
@@ -264,6 +267,9 @@ class DecoderModel:
         if cfg.vlm is not None and positions_thw is not None:
             cos, sin = L.mrope_cos_sin(positions_thw, cfg.head_dim, cfg.rope_theta,
                                        cfg.vlm.mrope_sections)
+        elif cfg.mla is not None:  # latent attention ropes its rope dims only
+            cos, sin = L.rope_cos_sin(positions, cfg.mla.qk_rope_head_dim, cfg.rope_theta,
+                                      scaling=cfg.rope_scaling)
         else:
             cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         ctx.cos_local, ctx.sin_local = cos, sin

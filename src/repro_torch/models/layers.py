@@ -61,13 +61,65 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
 
 # --------------------------------------------------------------------------- rope
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
-                 dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions [...] -> cos, sin [..., head_dim // 2] (f32 tables)."""
+                 dtype: torch.dtype = torch.float32,
+                 scaling=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [...] -> cos, sin [..., head_dim // 2] (f32 tables); with
+    ``scaling`` (a ``YarnConfig``) YaRN's frequencies and table scale."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
     freqs = 1.0 / (theta ** exps)
+    mult = 1.0
+    if scaling is not None:
+        freqs = yarn_inv_freq(freqs, head_dim, theta, scaling)
+        mult = (yarn_mscale(scaling.factor, scaling.mscale)
+                / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
     ang = positions.float()[..., None] * freqs
-    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if mult != 1.0:
+        cos, sin = cos * mult, sin * mult
+    return cos.to(dtype), sin.to(dtype)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 mscale ln(factor) + 1`` (1 where the
+    factor does not stretch)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_range(dim: int, theta: float, scaling) -> Tuple[int, int]:
+    """The frequency slots (of dim // 2) where YaRN's ramp runs: from the
+    slot that turns ``beta_fast`` times over the original positions (floor)
+    to the one that turns ``beta_slow`` times (ceil), clipped to the
+    slots."""
+    orig = scaling.original_max_position_embeddings
+
+    def slot(rotations: float) -> float:
+        return dim * math.log(orig / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = math.floor(slot(scaling.beta_fast))
+    high = math.ceil(slot(scaling.beta_slow))
+    return max(low, 0), min(high, dim - 1)
+
+
+def yarn_inv_freq(freqs: torch.Tensor, dim: int, theta: float, scaling) -> torch.Tensor:
+    """YaRN's frequencies from the plain ones ``freqs`` [dim // 2]: the
+    interpolated ``freqs / factor`` past the ramp, the plain ones before
+    it, a linear blend over it (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``)."""
+    low, high = yarn_range(dim, theta, scaling)
+    i = torch.arange(freqs.shape[0], dtype=torch.float32, device=freqs.device)
+    ramp = ((i - low) / max(high - low, 1e-3)).clamp(0.0, 1.0)
+    return freqs / scaling.factor * ramp + freqs * (1.0 - ramp)
+
+
+def mla_softmax_scale(cfg) -> float:
+    """Latent attention's softmax scale: (nope + rope) ** -0.5, times
+    YaRN's ``m(mscale_all_dim) ** 2`` where the rope is scaled."""
+    scale = cfg.mla.qk_head_dim ** -0.5
+    sc = cfg.rope_scaling
+    if sc is not None and sc.mscale_all_dim:
+        scale *= yarn_mscale(sc.factor, sc.mscale_all_dim) ** 2
+    return scale
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -434,7 +486,7 @@ class _GatherZigzag(torch.autograd.Function):
         return mine, None, None, None
 
 
-def _flash_call(q, k, v, causal, window, n_meta, q_offset=0):
+def _flash_call(q, k, v, causal, window, n_meta, q_offset=0, scale=None):
     """The flash kernel forward with the reference backward
     (``_FlashRefBwd``), per rank (``_per_rank``); a split it cannot run
     per rank takes the direct call on the whole tensors, as the reference
@@ -443,7 +495,7 @@ def _flash_call(q, k, v, causal, window, n_meta, q_offset=0):
     kernel's causal mask counts query rows from 0 (it takes no offset), so
     a rank cannot run a slice of them."""
     def run(q, k, v):
-        return _FlashRefBwd.apply(q, k, v, causal, window, n_meta, q_offset)
+        return _FlashRefBwd.apply(q, k, v, causal, window, n_meta, q_offset, scale)
 
     return _per_rank(run, lambda q, k, v: run(full(q), full(k), full(v)), q, k, v)
 
@@ -458,34 +510,37 @@ class _FlashRefBwd(torch.autograd.Function):
     call it: the kernel then sees plain tensors, not functorch wrappers."""
 
     @staticmethod
-    def forward(q, k, v, causal, window, n_meta, q_offset):
-        return _flash.flash_attention(q, k, v, causal=causal, window=window, n_meta=n_meta)
+    def forward(q, k, v, causal, window, n_meta, q_offset, scale):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window, n_meta=n_meta,
+                                      scale=scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, n_meta, q_offset = inputs
+        q, k, v, causal, window, n_meta, q_offset, scale = inputs
         ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, window, n_meta, q_offset)
+        ctx.args = (causal, window, n_meta, q_offset, scale)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        causal, window, n_meta, q_offset = ctx.args
+        causal, window, n_meta, q_offset, scale = ctx.args
         # on autograd's thread: the span's parent is the open train.backward
         with stage("model.attention", "backward"):
             _, vjp = torch.func.vjp(
                 lambda q, k, v: attention(q, k, v, causal=causal, window=window,
-                                          n_meta=n_meta, q_offset=q_offset),
+                                          n_meta=n_meta, q_offset=q_offset, scale=scale),
                 q, k, v)
-            return (*vjp(g), None, None, None, None)
+            return (*vjp(g), None, None, None, None, None)
 
 
 def attention_trainable(q, k, v, *, causal: bool = True, window: int = 0, n_meta: int = 0,
-                        q_offset: int = 0, impl: str = "chunked"):
+                        q_offset: int = 0, impl: str = "chunked",
+                        scale: Optional[float] = None):
     """Attention with a selectable implementation: "chunked" (plain PyTorch,
-    the baseline) or "flash" (the CUDA kernel forward, reference backward)."""
+    the baseline) or "flash" (the CUDA kernel forward, reference backward).
+    ``scale`` defaults to 1/sqrt(hd)."""
     if impl == "flash":
-        return _flash_call(q, k, v, causal, window, n_meta, q_offset)
+        return _flash_call(q, k, v, causal, window, n_meta, q_offset, scale)
 
     # per rank too: DTensor's dispatch of each op of the block loop costs
     # more host time than the op, and the grouped-query reshape regathers
@@ -493,7 +548,7 @@ def attention_trainable(q, k, v, *, causal: bool = True, window: int = 0, n_meta
     # the DTensors as they are)
     def run(q, k, v):
         return attention(q, k, v, causal=causal, window=window, n_meta=n_meta,
-                         q_offset=q_offset)
+                         q_offset=q_offset, scale=scale)
 
     def rows(q, k, v, offset):
         # the query rows from ``offset`` on; under a causal mask the keys
@@ -501,7 +556,7 @@ def attention_trainable(q, k, v, *, causal: bool = True, window: int = 0, n_meta
         if causal:
             k, v = k[:, :q_offset + offset + q.shape[1]], v[:, :q_offset + offset + q.shape[1]]
         return attention(q, k, v, causal=causal, window=window, n_meta=n_meta,
-                         q_offset=q_offset + offset)
+                         q_offset=q_offset + offset, scale=scale)
 
     return _per_rank(run, run, q, k, v, seq_run=rows)
 

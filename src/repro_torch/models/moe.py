@@ -51,7 +51,9 @@ from repro_torch.models.layers import _act
 
 def router_topk(x: torch.Tensor, w_router: torch.Tensor,
                 cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x [T, D] -> (weights [T, k] f32, idx [T, k] int64, aux loss f32 scalar)."""
+    """x [T, D] -> (weights [T, k] f32, idx [T, k] int64, aux loss f32 scalar).
+    The k weights are renormalised to sum to 1 unless ``cfg.norm_topk_prob``
+    is False (DeepSeek-V2), where they stay the softmax's."""
     logits = x.float() @ w_router.float()  # [T, E]
     # laid out by token, and so is its cotangent: the aux loss's mean over
     # tokens sends back a replicated one, and the softmax's and router's
@@ -59,7 +61,7 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor,
     probs = ann(torch.softmax(logits, dim=-1), "batch", None)
     weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, idx = weights[:, :cfg.top_k], idx[:, :cfg.top_k]
-    if cfg.top_k > 1:
+    if cfg.top_k > 1 and cfg.norm_topk_prob:
         weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
     # switch-style load-balancing loss over the top-1 choices
     E = w_router.shape[-1]

@@ -204,6 +204,11 @@ class VhostStyleServer:
         self.active: Dict[int, Request] = {}  # slot -> request
         self.lengths_target: Dict[int, int] = {}
         self.cache = model.init_cache(slots, max_cache_len)
+        # each row's cache length as the card holds it, kept on the host
+        # (a prefill sets it, every decode step adds one to every row), so
+        # the slots a step's attention reads are counted with no wait
+        self._n_meta = getattr(model, "n_meta", 0)
+        self._lengths = np.zeros(slots, np.int64)
         self._decode = make_decode_step(model)
         self._free_slots = list(range(slots))[::-1]
         self._tokens = torch.zeros((slots, 1), dtype=torch.int32, device=model.device)
@@ -270,6 +275,7 @@ class VhostStyleServer:
         # splice the single-sequence cache into the batch cache at `slot`
         with stage("serve.splice", "prefill", req.req_id):
             self.cache = _splice_cache(self.cache, cache1, slot)
+        self._lengths[slot] = len(req.prompt) + self._n_meta
         tok = int(torch.argmax(logits[0]))
         req.output.append(tok)
         req.first_token_at = time.perf_counter()
@@ -409,6 +415,11 @@ class VhostStyleServer:
         if self.observer is not None:
             self.observer.gauge("serving.stage.decode_launch_us",
                                 (time.perf_counter() - t0) * 1e6)
+            # the slots a full cache's decode attention reads in each layer:
+            # every row's [0, length], within the cache
+            self.observer.gauge("serving.decode.live_slots", float(np.minimum(
+                self._lengths + 1, self.max_cache_len + self._n_meta).sum()))
+        self._lengths += 1
         self._tokens = next_tokens
         self.metrics["decoded_tokens"] += len(self.active)
         with stage("serve.decode.read", "decode"):

@@ -76,22 +76,38 @@ def _j(x, dtype):
 
 
 # --------------------------------------------------------------------------- configs and params
+def _as_reference(cfg) -> dict:
+    """A port configuration as the reference's fields: the fields only the
+    port has (latent attention, rope scaling, the router's
+    ``norm_topk_prob``) must hold their defaults, which the reference's
+    code computes, and are left out."""
+    d = dataclasses.asdict(cfg)
+    assert d.pop("mla") is None and d.pop("rope_scaling") is None
+    if d["moe"] is not None:
+        assert d["moe"].pop("norm_topk_prob") is True
+    return d
+
+
 def test_configs_are_the_references():
+    """Every architecture of the reference is the port's, field for field;
+    the port's registry holds them first, then its own (deepseek-v2-lite)."""
     from repro.configs import ARCH_IDS as J_ARCH_IDS
 
-    assert ARCH_IDS == J_ARCH_IDS
-    for arch in ARCH_IDS:
+    assert ARCH_IDS[:len(J_ARCH_IDS)] == J_ARCH_IDS
+    assert ARCH_IDS[len(J_ARCH_IDS):] == ("deepseek-v2-lite",)
+    for arch in J_ARCH_IDS:
         want = dataclasses.asdict(j_get_config(arch))
-        assert dataclasses.asdict(get_config(arch)) == want
-        assert dataclasses.asdict(get_config(arch).reduced()) == dataclasses.asdict(
+        assert _as_reference(get_config(arch)) == want
+        assert _as_reference(get_config(arch).reduced()) == dataclasses.asdict(
             j_get_config(arch).reduced())
 
 
 def test_build_segments_is_the_references():
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
     from repro.models.decoder import build_segments as j_segments
     from repro_torch.models.decoder import build_segments
 
-    for arch in ARCH_IDS:
+    for arch in J_ARCH_IDS:
         for cfg, jcfg in ((get_config(arch), j_get_config(arch)),
                           (get_config(arch).reduced(), j_get_config(arch).reduced())):
             got = [dataclasses.astuple(s) for s in build_segments(cfg)]
